@@ -1,4 +1,4 @@
-"""TPU-native differentiable progressive Monte-Carlo path tracer.
+"""Differentiable progressive Monte-Carlo path tracer in JAX.
 
 A from-scratch JAX/Pallas re-design of the capabilities of
 georgehuan1994/OpenGL-Ray-Tracing-Framework (C++/GLSL, single GPU):
@@ -6,22 +6,23 @@ georgehuan1994/OpenGL-Ray-Tracing-Framework (C++/GLSL, single GPU):
 - Scene ingestion (OBJ + TRS + unit-scale normalization), SAH BVH,
   Disney-principled BSDF with media, HDR environment importance sampling,
   progressive accumulation with invalidation, ACES/gamma post, image export.
-- Re-designed TPU-first: SoA HBM arrays instead of texture buffers, a
-  vectorized wavefront integrator under `jit` instead of a fragment-shader
-  megakernel, `shard_map` pixel/sample sharding over a device mesh instead of
-  SIMT, and reverse-mode pixel gradients w.r.t. material/camera parameters
-  (the differentiable analogue of the reference's live-edit loop).
+- Re-designed for an accelerator: SoA device arrays instead of texture
+  buffers, a wavefront integrator under `jit` with a BVH traversal kernel
+  (Pallas through Triton on NVIDIA GPUs) instead of a fragment-shader
+  megakernel, `shard_map` pixel/sample sharding over a device mesh, and
+  reverse-mode pixel gradients w.r.t. material/camera parameters (the
+  differentiable analogue of the reference's live-edit loop).
 
-Reference layer map: /root/reference/src (see SURVEY.md).
+Reference layer map: see SURVEY.md.
 """
 
 __version__ = "0.1.0"
 
 from .utils.cache import enable_compilation_cache
 
-# Persistent XLA/Mosaic compilation cache: cold compiles of the fused
-# render program take minutes; cached reloads take seconds. Opt out with
-# ORTF_NO_CACHE=1 (utils/cache.py).
+# Persistent XLA compilation cache: cold compiles of the fused render
+# program are slow; cached reloads are fast. Opt out with ORTF_NO_CACHE=1
+# (utils/cache.py).
 enable_compilation_cache()
 
 from .utils.config import RenderConfig

@@ -20,13 +20,13 @@ import time
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="TPU path tracer")
+    p = argparse.ArgumentParser(description="Differentiable path tracer")
     p.add_argument("--scene", default="test",
                    help="test | bunny | loong | sphere | comma list of "
                         "reference objects. NOTE: the reference's Scene.h "
                         "also lists 'panther', but the asset "
-                        "(panther_100000.obj) does not ship in "
-                        "/root/reference/resources — requesting it fails "
+                        "(panther_100000.obj) does not ship in the "
+                        "reference's resources — requesting it fails "
                         "with a clear error; use --scene loong "
                         "--material brown_glass for BASELINE config-4 "
                         "physics (ABSORB medium + refraction)")
@@ -64,12 +64,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--preview-every", type=int, default=0,
                    help="write the current image to --out every N passes "
                         "(the live-preview analogue of the ImGui loop)")
-    p.add_argument("--tracer", default="sweep",
-                   choices=("sweep", "scheduled", "whileloop", "brute"),
-                   help="closest-hit backend (sweep = TPU fast path)")
+    p.add_argument("--tracer", default="kernel",
+                   choices=("kernel", "whileloop", "brute"),
+                   help="closest-hit tracer: the BVH kernel (GPU), the "
+                        "XLA while-loop reference, or brute force")
     p.add_argument("--timing", action="store_true",
                    help="print a per-stage device-time breakdown "
-                        "(raygen/sort/tnear/casts/shade/env/accumulate) "
+                        "(raygen/casts/shade/env/accumulate) "
                         "before rendering — the FPS/ms readout analogue "
                         "(main.cpp:366-372)")
     p.add_argument("--distributed", action="store_true",
@@ -140,8 +141,7 @@ def main(argv=None):
         enable_tone_mapping=not args.no_tonemap,
         enable_gamma_correction=not args.no_gamma,
         use_bvh=args.tracer != "brute",
-        use_pallas=args.tracer in ("sweep", "scheduled"),
-        pallas_backend="sweep" if args.tracer == "sweep" else "schedule",
+        tracer="whileloop" if args.tracer == "whileloop" else "kernel",
     )
 
     if args.timing:

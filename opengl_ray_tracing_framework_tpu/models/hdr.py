@@ -155,19 +155,15 @@ def build_env_fetch(hdr: np.ndarray, cache: np.ndarray) -> np.ndarray:
     """Fused (H*W, 16) row-gather table for the in-loop env accesses.
 
     Columns: [map_r, map_g, map_b, pdf_img, cache_x, cache_y, pdf_sampled,
-    sampled_r, sampled_g, sampled_b, 0...]. Texel index is the MAJOR axis:
-    TPU gathers are fast along the sublane (major) axis and ~40x slower
-    along the lane (minor) axis (measured 249.95 ms vs 6.42 ms per
-    131072-index gather at this table size, exp/env_gather_probe.py) — the
-    round-3 breakdown's dominant cost. pdf_img is the image-space pdf
+    sampled_r, sampled_g, sampled_b, 0...]. Texel index is the MAJOR axis,
+    so one fetch reads one contiguous row. pdf_img is the image-space pdf
     addressed by *pixel position* (the reference's hdrPdf addressing,
     glsl:1173-1186); pdf_sampled and sampled_rgb are the pdf and radiance
     of the texel the inverse-CDF sampler lands on, addressed by the
     *uniforms* (xi_1, xi_2) like cache_x/cache_y — so NEE gets sample
     position, its true pdf AND its radiance in ONE fetch (the reference
     pays three texture lookups: SampleHdr + hdrColor + hdrPdf,
-    glsl:1382-1390). Gather cost is identical to an 8-wide row: the
-    gathered rows pad to 128 lanes either way.
+    glsl:1382-1390).
     """
     h, w = hdr.shape[:2]
     # cache stores xs/w and ys/h; recover the exact integer sample indices

@@ -6,7 +6,7 @@ anisotropic, sheen, sheenTint, clearcoat, clearcoatGloss, IOR, transmission,
 plus a participating-medium description {type, color, density, anisotropy}
 (MediumType, Material.h:17-23).
 
-TPU-first redesign: instead of baking a material copy into every encoded
+Redesign: instead of baking a material copy into every encoded
 triangle (Triangle_encoded, src/core/Triangle.h:28-39) and re-uploading the
 whole texture buffer on each edit (RefreshTriangleMaterial, Triangle.h:
 133-151), materials live in a small `MaterialTable` pytree of (M, ...)
@@ -124,11 +124,10 @@ class MaterialTable(NamedTuple):
     def gather(self, idx) -> Material:
         """Per-hit material fetch: idx int32 (...,) -> Material batch.
 
-        One-hot contraction instead of a gather: TPU random gathers run at
-        ~0.7 Gelem/s while a (R, M) x (M, F) contraction over the ~9-entry
-        table is effectively free — and it makes the fetch trivially
+        One-hot contraction over the small table: trivially
         differentiable w.r.t. the table (the inverse-rendering parameter
-        vector)."""
+        vector). HIGHEST precision keeps the f32 contraction exact on GPUs,
+        whose default f32 matmul precision is TF32."""
         safe = jnp.clip(idx, 0, self.count - 1)
         onehot = (safe[..., None] ==
                   jnp.arange(self.count, dtype=idx.dtype)).astype(jnp.float32)
@@ -139,7 +138,8 @@ class MaterialTable(NamedTuple):
                 # any value, and id-like fields need no gradient anyway
                 return a[safe]
             flat = a.reshape(self.count, -1)
-            out = jnp.einsum("...m,mf->...f", onehot, flat)
+            out = jnp.einsum("...m,mf->...f", onehot, flat,
+                             precision=jax.lax.Precision.HIGHEST)
             return out.reshape(safe.shape + a.shape[1:])
 
         return jax.tree.map(pick, self.mat)

@@ -12,9 +12,9 @@ Branchless, batched jnp reimplementation of the reference's shading core
 - combined sample                 DisneySample            glsl:1070-1161
 - legacy 3-lobe BRDF mode         BRDF_Evaluate/SampleBRDF glsl:789-921
 
-The SIMT kernel branches per fragment on the chosen lobe; on a vector
-machine we evaluate every lobe for every ray and select — ~3x the FLOPs of
-one lobe but fully dense on the VPU, which is the winning trade on TPU.
+The SIMT kernel branches per fragment on the chosen lobe; the batched
+integrator evaluates every lobe for every ray and selects — ~3x the FLOPs
+of one lobe, but one fused elementwise program with no divergence.
 All selects use safe denominators so unselected lanes carry no NaN/Inf
 (this keeps reverse-mode gradients clean through jnp.where).
 

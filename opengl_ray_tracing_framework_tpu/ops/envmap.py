@@ -104,11 +104,8 @@ def hdr_pdf(hdr_cache, direction, env_angle, hdr_width, hdr_height):
 #
 # The in-loop environment accesses are restructured as ONE row gather per
 # site from the fused (H*W, 16) table SceneData.env_fetch (columns:
-# models.hdr.build_env_fetch) with nearest filtering. The texel index MUST
-# be the major axis: TPU gathers along the sublane (major) axis run at
-# ~6 ms / 131k indices at this table size, gathers along the lane (minor)
-# axis at ~250 ms (measured, exp/env_gather_probe.py — the round-3
-# breakdown's dominant pass cost at 3 such sites per bounce). NEE needs a
+# models.hdr.build_env_fetch) with nearest filtering. The texel index is
+# the major axis, so each fetch reads one contiguous row. NEE needs a
 # single gather: the sample row carries position, pdf AND radiance
 # (the reference samples with GL bilinear; nearest is a documented deviation
 # worth ~3x fewer fetched elements, invisible at 1k+ HDR resolutions).

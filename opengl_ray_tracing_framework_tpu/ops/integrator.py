@@ -86,10 +86,8 @@ class PathState(NamedTuple):
 
 
 # (R, 3)-shaped PathState fields, flattened to (3R,) across the bounce-scan
-# boundary: reverse-mode AD stacks the loop carry per bounce, and a stacked
-# (B, R, 3) buffer is laid out with the 3-wide minor dim padded to 128
-# lanes (a measured 42.7x HBM expansion -> OOM at the bench shape); the
-# (B, 3R) stack of the flattened carry pads to ~1x.
+# boundary: reverse-mode AD stacks the loop carry per bounce, and the
+# flattened carry stacks as one dense (B, 3R) buffer.
 _VEC_FIELDS = (0, 1, 5, 6)   # origin, direction, history, lo
 
 
@@ -138,10 +136,10 @@ def _safe_rcp(x, eps=_EPS_PDF):
 #
 # The fragment shader retires a path with `break` and the GPU's SIMT
 # scheduler refills the warp from other fragments (glsl:1518-1550). A dense
-# TPU batch has no scheduler — dead lanes would ride every per-bounce stage
-# (NEE gather, shadow cast, BSDF sample, bounce cast) at full width. Alive
-# fractions on the bench scene collapse to <5% by bounce 3
-# (exp/alive_profile.py), so each bounce partitions the alive rays to a
+# wavefront batch has no scheduler — dead lanes would ride every per-bounce
+# stage (NEE gather, shadow cast, BSDF sample, bounce cast) at full width.
+# On glass scenes few paths survive the first bounces, so each bounce
+# partitions the alive rays to a
 # dense prefix and runs the whole bounce at the smallest bucketed static
 # width that holds them (lax.switch keeps every shape static for XLA).
 # Exact by construction: the partition uses bounce-start aliveness, dead
@@ -170,9 +168,8 @@ _BUCKET_DIVISORS = (1, 2, 4, 8, 16, 64)
 def _bucket_widths(r: int, n_buckets: int):
     """Static bounce widths r/1, r/2, r/4, r/8, r/16, r/64 (floor 512
     rays: below that the per-branch fixed costs exceed the trace work
-    saved). Divisors match the measured alive-fraction clusters on the
-    bench scene (exp/alive_profile.py: ~0.9, ~0.27, ~0.2, ~0.1, ~0.05,
-    <0.02) so bucket round-up waste stays under ~2x."""
+    saved). Power-of-two divisors keep bucket round-up waste under 2x
+    down to R/16."""
     widths = []
     for div in _BUCKET_DIVISORS[:max(n_buckets, 1)]:
         w = r // div
@@ -191,11 +188,8 @@ def _compacted_bounce(body, b, state, pixel_id, n_buckets: int):
 
     Every value crossing the lax.switch boundary is FLAT 1-D: switch
     operands/results (and, under AD, their cotangents and per-branch
-    residuals) are materialized at conditional boundaries, and a
-    materialized f32[R, 3] is layout-padded 42.7x to T(8, 128) tiles
-    (f32[R, 1] 128x) — at the 131072-ray bench tile that is 64 MB per
-    boundary buffer and an HBM OOM in the backward pass (BENCH_r04 rc=1).
-    The (R,)-flattened carry crosses instead (~1x padding); (w, 3) views
+    residuals) are materialized at conditional boundaries, so the
+    (R,)-flattened carry crosses as dense 1-D buffers; (w, 3) views
     exist only inside a branch where XLA fuses them away. Vec-field
     gather/scatter uses interleaved flat indices (lane i -> 3i..3i+2), so
     results remain bitwise-identical to the unflattened form
@@ -242,14 +236,9 @@ def _compacted_bounce(body, b, state, pixel_id, n_buckets: int):
 #
 # _compacted_bounce puts the WHOLE bounce body behind a lax.switch; under
 # reverse-mode AD every branch is replayed and transposed, and the
-# boundary materializations dominate the backward sweep: the grad-step
-# profile (exp/bwd_profile.py, 2026-08-21) measured 824 ms of
-# scalar->f32[R,1..3] broadcasts at T(8,128)-padded layouts (~1,900
-# distinct instructions, 42.7x-128x padding) + 192 ms of copies, vs only
-# 0.39 s of actual shading replay+transpose when no switch exists
-# (exp/bwd_buckets_probe.py, buckets=0). These helpers keep the bucketing
-# win where it matters — the traversal launches, ~1 s/pass at full width —
-# while shading runs at full width: the traversal is detached
+# boundary materializations add to the backward sweep. These helpers keep
+# the bucketing where it matters — the traversal launches — while shading
+# runs at full width: the traversal is detached
 # (stop_gradient, traverse.closest_hit), so NOTHING inside this switch
 # carries a cotangent, its transpose is empty, and with the returned hits
 # checkpoint_name'd the remat replay drops the whole switch as dead code.
@@ -346,7 +335,7 @@ def _compacted_cast(scene, alive, origin, direction, mask, config):
 
     def cast_at(sel, vecs, ms, vz):
         o, d = (x.reshape(-1, 3) for x in vecs)
-        h = closest_hit(scene, o, d, config, mask=ms[0], secondary=True)
+        h = closest_hit(scene, o, d, config, mask=ms[0])
         return _scatter_hit(h, sel, vz)
 
     out = _cast_switch(
@@ -541,7 +530,7 @@ def _bounce_loop_bsdf(scene, origin, direction, hit0, pixel_id, frame,
                                       alive, config)
             else:
                 nxt = closest_hit(scene, new_org, new_dir, config,
-                                  mask=alive, secondary=True)
+                                  mask=alive)
             nxt = _named_hit(nxt, "hit")
         nxt_miss = alive & ~nxt.is_hit
 
@@ -677,7 +666,7 @@ def _bounce_loop_brdf(scene, origin, direction, hit0, pixel_id, frame,
                                       alive, config)
             else:
                 nxt = closest_hit(scene, hit_point, l_dir, config,
-                                  mask=alive, secondary=True)
+                                  mask=alive)
             nxt = _named_hit(nxt, "hit")
         nxt_miss = alive & ~nxt.is_hit
 

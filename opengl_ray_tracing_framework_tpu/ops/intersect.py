@@ -190,8 +190,8 @@ def surface_attributes(scene, state):
     t is only a reference value (they agree to the 1e-5 pullback).
 
     Triangle data comes from the fused (20, N) SceneData.tri_attr table in
-    ONE row-block gather (the fast TPU layout); vertex gradients therefore
-    accumulate on tri_attr."""
+    ONE column gather; vertex gradients therefore accumulate on
+    tri_attr."""
     safe = jnp.clip(state.tri, 0, scene.n_triangles - 1)
     g = scene.tri_attr[:, safe]                     # (20, R)
     ax = lambda rows: jnp.moveaxis(rows, 0, -1)

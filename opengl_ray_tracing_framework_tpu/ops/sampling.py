@@ -1,6 +1,6 @@
 """Random number generation and importance-sampling primitives.
 
-TPU-first redesign of the reference's RNG/QMC stack
+Redesign of the reference's RNG/QMC stack
 (src/shaders/fragment_shader_ray_tracing.glsl):
 
 - The reference seeds a *stateful* per-pixel Wang-hash chain from a per-frame

@@ -13,6 +13,7 @@ jnp ports of the reference's post pass
 from __future__ import annotations
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 # sRGB => XYZ => D65->D60 => AP1 => RRT_SAT (tone_mapping.glsl:30-35).
@@ -58,9 +59,10 @@ def _rrt_odt_fit(v):
 
 def aces_fitted(c):
     """Full fitted ACES RRT+ODT (glsl:45-64)."""
-    c = c @ _ACES_INPUT.T
+    hi = jax.lax.Precision.HIGHEST   # f32, not the GPU's default TF32
+    c = jnp.matmul(c, _ACES_INPUT.T, precision=hi)
     c = _rrt_odt_fit(c)
-    c = c @ _ACES_OUTPUT.T
+    c = jnp.matmul(c, _ACES_OUTPUT.T, precision=hi)
     return jnp.clip(c, 0.0, 1.0)
 
 

@@ -1,18 +1,21 @@
-"""Vectorized BVH traversal.
+"""BVH traversal: the tracer dispatch and the XLA wavefront reference.
 
 The reference traverses its BVH per fragment with an explicit 256-entry
 stack and near-child-first ordering (hitBVH, glsl:338-392), visiting leaves
 of <= 8 triangles with a brute-force loop (hitArray, glsl:320-334).
 
-TPU redesign: one traversal step for a whole *batch* of rays per
+`closest_hit` / `closest_hit_pair` dispatch on RenderConfig.tracer: the
+Pallas BVH kernel (ops/bvh_kernel.py, one ray per GPU thread) or
+`bvh_closest_hit`, the plain-XLA reference it is checked against.
+
+`bvh_closest_hit` runs one traversal step for a whole *batch* of rays per
 `lax.while_loop` iteration. Every ray keeps a small per-ray stack as a row
 of an (R, D) int32 array; pushes/pops are one-hot masked writes, node and
 triangle fetches are batched gathers, and leaf handling intersects the whole
 leaf (up to leaf_size triangles) against each ray in one vectorized
-ray_triangle call. Rays that finish idle until the whole wavefront drains —
-the standard SIMD trade. Near-child-first ordering and the early-out
-`t_enter > best_t` cut keep visited-node counts close to the scalar
-reference.
+ray_triangle call. Rays that finish idle until the whole wavefront drains.
+Near-child-first ordering and the early-out `t_enter > best_t` cut keep
+visited-node counts close to the scalar reference.
 """
 
 from __future__ import annotations
@@ -145,16 +148,42 @@ def bvh_closest_hit(scene, origin, direction, stack_depth: int = 64,
     return best
 
 
-def closest_hit(scene, origin, direction, config, mask=None,
-                any_hit: bool = False, secondary: bool = False) -> Hit:
-    """Dispatch on the configured backend.
+def _cast(scene, origin, direction, config, mask=None, any_hit=None) -> Hit:
+    if not config.use_bvh or config.tracer == "whileloop":
+        if not config.use_bvh:
+            from .intersect import closest_hit_brute
+            hit = closest_hit_brute(origin, direction,
+                                    scene.p1, scene.p2, scene.p3)
+        else:
+            hit = bvh_closest_hit(scene, origin, direction,
+                                  stack_depth=config.traversal_stack_depth,
+                                  leaf_size=config.bvh_leaf_size)
+        if mask is None:
+            return hit
+        return Hit(t=jnp.where(mask, hit.t, INF),
+                   tri=jnp.where(mask, hit.tri, -1),
+                   inside=mask & hit.inside)
+    from . import bvh_kernel
+    return bvh_kernel.closest_hit_kernel(
+        scene, origin, direction, mask, any_hit,
+        stack_depth=config.traversal_stack_depth,
+        leaf_size=config.bvh_leaf_size)
 
-    mask: optional (R,) bool — dead lanes may skip tracing (integrators
-    gate on their own alive mask, so a miss is returned for them).
-    any_hit: occlusion-query semantics; backends may stop at the first
-    hit (is_hit is then the only meaningful field).
-    secondary: incoherent bounce/shadow batch (sweep backend picks its
-    smaller kernel tile) — a pure performance hint.
+
+def _detached(hit: Hit) -> Hit:
+    return Hit(t=jax.lax.stop_gradient(hit.t), tri=hit.tri,
+               inside=hit.inside)
+
+
+def closest_hit(scene, origin, direction, config, mask=None,
+                any_hit: bool = False) -> Hit:
+    """Closest hit through the configured tracer (RenderConfig.tracer;
+    use_bvh=False is the brute-force reference).
+
+    mask: optional (R,) bool — False lanes return a miss (the kernel does
+    not trace them at all).
+    any_hit: occlusion-query semantics; the kernel stops each ray at its
+    first hit (is_hit is then the only meaningful field).
 
     Traversal is *detached* from autodiff: the discrete winner (tri, inside)
     has no useful derivative and lax.while_loop cannot be transposed, so
@@ -164,52 +193,30 @@ def closest_hit(scene, origin, direction, config, mask=None,
     continuous quantities — the "differentiate the integrand" scheme
     (detached sampling; discontinuity gradients at silhouettes are the
     documented bias, SURVEY.md §7)."""
-    origin = jax.lax.stop_gradient(origin)
-    direction = jax.lax.stop_gradient(direction)
-    if not config.use_bvh:
-        from .intersect import closest_hit_brute
-        hit = closest_hit_brute(origin, direction,
-                                scene.p1, scene.p2, scene.p3)
-    elif config.use_pallas:
-        if config.pallas_backend == "sweep":
-            from .sweep import closest_hit_swept
-            hit = closest_hit_swept(scene, origin, direction, config,
-                                    mask=mask, any_hit=any_hit,
-                                    interpret=config.pallas_interpret,
-                                    secondary=secondary)
-        else:
-            from .schedule import closest_hit_scheduled
-            hit = closest_hit_scheduled(scene, origin, direction, config,
-                                        mask=mask, any_hit=any_hit,
-                                        interpret=config.pallas_interpret)
-    else:
-        hit = bvh_closest_hit(scene, origin, direction,
-                              stack_depth=config.traversal_stack_depth,
-                              leaf_size=config.bvh_leaf_size)
-    return Hit(t=jax.lax.stop_gradient(hit.t), tri=hit.tri,
-               inside=hit.inside)
+    sg = jax.lax.stop_gradient
+    flag = None
+    if any_hit:
+        flag = jnp.ones(origin.shape[:1], bool)
+    return _detached(_cast(scene, sg(origin), sg(direction), config,
+                           mask=mask, any_hit=flag))
 
 
 def closest_hit_pair(scene, o_any, d_any, m_any, o_cls, d_cls, m_cls,
                      config):
     """The integrator's per-bounce cast pair — NEE shadow (any-hit) +
-    bounce (closest) — as ONE traversal launch on the sweep backend
-    (ops.sweep.closest_hit_swept_pair: one sort, one slab pass, one
-    kernel dispatch), or two plain casts on every other backend. Results
-    are identical either way (exact per-ray semantics); detached like
-    closest_hit."""
-    if config.use_bvh and config.use_pallas \
-            and config.pallas_backend == "sweep":
-        from .sweep import closest_hit_swept_pair
-        sg = jax.lax.stop_gradient
-        h_any, h_cls = closest_hit_swept_pair(
-            scene, sg(o_any), sg(d_any), m_any, sg(o_cls), sg(d_cls), m_cls,
-            config, interpret=config.pallas_interpret)
-        return (Hit(t=jax.lax.stop_gradient(h_any.t), tri=h_any.tri,
-                    inside=h_any.inside),
-                Hit(t=jax.lax.stop_gradient(h_cls.t), tri=h_cls.tri,
-                    inside=h_cls.inside))
-    return (closest_hit(scene, o_any, d_any, config, mask=m_any,
-                        any_hit=True, secondary=True),
-            closest_hit(scene, o_cls, d_cls, config, mask=m_cls,
-                        secondary=True))
+    bounce (closest). The kernel traces both batches in ONE launch, with
+    a per-ray any-hit flag on the shadow half; the reference tracers run
+    two casts. Results are identical either way (exact per-ray
+    semantics); detached like closest_hit."""
+    if not config.use_bvh or config.tracer == "whileloop":
+        return (closest_hit(scene, o_any, d_any, config, mask=m_any,
+                            any_hit=True),
+                closest_hit(scene, o_cls, d_cls, config, mask=m_cls))
+    sg = jax.lax.stop_gradient
+    r = o_any.shape[0]
+    cat = lambda a, b: jnp.concatenate([a, b])
+    flag = cat(jnp.ones_like(m_any), jnp.zeros_like(m_cls))
+    hit = _cast(scene, sg(cat(o_any, o_cls)), sg(cat(d_any, d_cls)), config,
+                mask=cat(m_any, m_cls), any_hit=flag)
+    return (_detached(Hit(*(x[:r] for x in hit))),
+            _detached(Hit(*(x[r:] for x in hit))))

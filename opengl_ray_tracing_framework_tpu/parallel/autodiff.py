@@ -4,7 +4,7 @@ The capability the reference only has interactively — edit a material, see
 the re-render (ImGui loop, main.cpp:329-480 + RefreshTriangleMaterial) —
 becomes reverse-mode AD: d(pixel loss)/d(material table). Pixels are
 sharded like the forward pass; each device backprops its own rows and the
-parameter gradients are `psum`'d over the ICI (scene parameters are
+parameter gradients are summed across devices (scene parameters are
 replicated, so the reduction is the only collective).
 """
 
@@ -17,17 +17,16 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..models.camera import Camera
-from ..utils.config import RenderConfig
-from .sharding import _trace_rows, block_order_rows
+from ..utils.config import RenderConfig, XLA_OPTIONS
+from .sharding import _trace_rows
 
 
 def _grad_config(config: RenderConfig) -> RenderConfig:
     """The config the gradient programs render with: cast-only compaction
     (config.grad_compaction_mode) keeps the bucketed traversal launches
     but runs shading full-width, so the backward sweep never crosses a
-    lax.switch boundary — measured 2.59 s -> 1.36 s per grad step at the
-    bench shape (exp/bwd_buckets_probe.py). Images and gradients are
-    exact in both modes (tests/test_compaction.py)."""
+    lax.switch boundary. Images and gradients are exact in both modes
+    (tests/test_compaction.py)."""
     return config.replace(compaction_mode=config.grad_compaction_mode)
 
 
@@ -35,9 +34,8 @@ def render_rows_radiance(scene, camera, config, row0, n_rows, spp,
                          rays_per_tile=65536, flat=False):
     """Mean radiance over spp samples for rows [row0, row0+n_rows).
 
-    flat=True: 1-D traced-order radiance (see _trace_rows) — the loss
-    path, where no (H, W, 3) array may materialize (HBM layout padding,
-    render.tile_traced)."""
+    flat=True: 1-D row-major radiance (see _trace_rows) — the loss path,
+    compared with the flattened target."""
     shape = (n_rows * config.width * 3,) if flat \
         else (n_rows, config.width, 3)
     acc = jnp.zeros(shape, jnp.float32)
@@ -54,7 +52,7 @@ def material_loss(materials, scene, camera, target_rows, config, row0,
     scene = scene.with_materials(materials)
     img = render_rows_radiance(scene, camera, config, row0, n_rows, spp,
                                rays_per_tile, flat=True)
-    return jnp.sum((img - block_order_rows(target_rows, config)) ** 2)
+    return jnp.sum((img - target_rows.reshape(-1)) ** 2)
 
 
 # Parameter groups for sharded autodiff: name -> (get, put) where
@@ -128,7 +126,7 @@ def param_grad_sharded(scene, camera: Camera, target, config: RenderConfig,
             img = render_rows_radiance(sc, cam, config, row0, rows_per_dev,
                                        spp, rays_per_tile, flat=True)
             return jnp.sum(
-                (img - block_order_rows(target_block, config)) ** 2)
+                (img - target_block.reshape(-1)) ** 2)
 
         loss, grads = jax.value_and_grad(loss_fn, allow_int=True)(p)
         gl = jax.tree.leaves(grads)
@@ -145,8 +143,10 @@ def param_grad_sharded(scene, camera: Camera, target, config: RenderConfig,
         mesh=mesh,
         in_specs=(P(), P(), P("tiles", None, None), P("tiles"), P("tiles")),
         out_specs=P("tiles"),
+        check_vma=False,   # Pallas kernel bodies carry no vma types
     )
-    stacked = jax.jit(fn)(scene, camera, target, dev_ids, params_stack)
+    stacked = jax.jit(fn, compiler_options=XLA_OPTIONS)(
+        scene, camera, target, dev_ids, params_stack)
     total = jnp.sum(stacked, axis=0)     # ONE cross-device reduction
     loss = total[-1]
 
@@ -172,7 +172,8 @@ def material_grad_sharded(scene, camera: Camera, target, config: RenderConfig,
                               rays_per_tile=rays_per_tile)
 
 
-@functools.partial(jax.jit, static_argnames=("config", "spp", "rays_per_tile"))
+@functools.partial(jax.jit, static_argnames=("config", "spp", "rays_per_tile"),
+                   compiler_options=XLA_OPTIONS)
 def material_grad(scene, camera: Camera, target, config: RenderConfig,
                   spp: int = 1, rays_per_tile: int = 65536):
     """Single-device (loss, grads) w.r.t. the material table."""
@@ -183,7 +184,8 @@ def material_grad(scene, camera: Camera, target, config: RenderConfig,
     return loss, grads
 
 
-@functools.partial(jax.jit, static_argnames=("config", "spp", "rays_per_tile"))
+@functools.partial(jax.jit, static_argnames=("config", "spp", "rays_per_tile"),
+                   compiler_options=XLA_OPTIONS)
 def camera_grad(scene, camera: Camera, target, config: RenderConfig,
                 spp: int = 1, rays_per_tile: int = 65536):
     """Single-device (loss, grads) w.r.t. the camera pose pytree."""
@@ -193,12 +195,13 @@ def camera_grad(scene, camera: Camera, target, config: RenderConfig,
         img = render_rows_radiance(scene, cam, config, jnp.int32(0),
                                    config.height, spp, rays_per_tile,
                                    flat=True)
-        return jnp.sum((img - block_order_rows(target, config)) ** 2)
+        return jnp.sum((img - target.reshape(-1)) ** 2)
 
     return jax.value_and_grad(loss_fn)(camera)
 
 
-@functools.partial(jax.jit, static_argnames=("config", "spp", "rays_per_tile"))
+@functools.partial(jax.jit, static_argnames=("config", "spp", "rays_per_tile"),
+                   compiler_options=XLA_OPTIONS)
 def geometry_grad(scene, camera: Camera, target, config: RenderConfig,
                   spp: int = 1, rays_per_tile: int = 65536):
     """Single-device (loss, vertex_grads) w.r.t. the triangle vertices.
@@ -222,7 +225,7 @@ def geometry_grad(scene, camera: Camera, target, config: RenderConfig,
         img = render_rows_radiance(sc, camera, config, jnp.int32(0),
                                    config.height, spp, rays_per_tile,
                                    flat=True)
-        return jnp.sum((img - block_order_rows(target, config)) ** 2)
+        return jnp.sum((img - target.reshape(-1)) ** 2)
 
     vertices = scene.tri_attr[0:9, :].reshape(3, 3, -1)
     return jax.value_and_grad(loss_fn)(vertices)

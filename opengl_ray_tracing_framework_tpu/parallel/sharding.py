@@ -1,18 +1,20 @@
 """Multi-chip rendering: shard pixels over a device mesh.
 
 The reference's only parallelism is fragment-shader SIMT on one GPU
-(glsl:1518, one invocation per pixel). The TPU mapping (SURVEY.md §2.4):
+(glsl:1518, one invocation per pixel). The multi-device mapping
+(SURVEY.md §2.4):
 
 - data-parallel axis = pixels: the image is split into row blocks across a
   1-D `jax.sharding.Mesh` axis ("tiles"); each device traces its rows,
 - the scene (triangles, BVH, HDR maps, materials) is *replicated* into every
-  device's HBM — 100k triangles encode to ~few MB, far below HBM,
+  device's memory — 100k triangles encode to a few MB,
 - accumulation is local (each device owns its rows), so the hot loop needs
   **zero collectives**; only gradient reduction (parallel.autodiff) and
-  whole-image gathers cross the ICI.
+  whole-image gathers cross the interconnect.
 
-Works identically on a real multi-chip slice and on the CPU-simulated mesh
-(XLA_FLAGS=--xla_force_host_platform_device_count=N) used by tests.
+Works identically on several GPUs (XLA hands collectives to NCCL) and on
+the CPU-simulated mesh (XLA_FLAGS=--xla_force_host_platform_device_count=N)
+used by tests.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from ..models.camera import Camera, pixel_uv
 from ..ops.integrator import trace_radiance
 from ..ops.sampling import rand01
 from ..render import RenderState
-from ..utils.config import RenderConfig
+from ..utils.config import RenderConfig, XLA_OPTIONS
 
 
 def make_mesh(devices=None, axis_name: str = "tiles") -> Mesh:
@@ -105,6 +107,7 @@ def render_pass_sharded(scene, camera: Camera, state: RenderState,
         static_argnames=("config", "rays_per_tile"),
         in_shardings=(rep, rep, RenderState(accum=row_sharding, n_samples=rep)),
         out_shardings=RenderState(accum=row_sharding, n_samples=rep),
+        compiler_options=XLA_OPTIONS,
     )
     def step(scene, camera, state, config=config,
              rays_per_tile=rays_per_tile):
@@ -147,6 +150,7 @@ def _sharded_pass_impl_2d(scene, camera, state, config, mesh, rays_per_tile):
         in_specs=(P(), P(), P("tiles", None, None), P(), P("tiles"),
                   P("spp")),
         out_specs=P("tiles", None, None),
+        check_vma=False,   # Pallas kernel bodies carry no vma types
     )(scene, camera, state.accum, state.n_samples,
       jnp.arange(n_tiles, dtype=jnp.int32),
       jnp.arange(n_spp, dtype=jnp.int32))
@@ -180,59 +184,24 @@ def _sharded_pass_impl(scene, camera, state, config, mesh, rays_per_tile):
         mesh=mesh,
         in_specs=(P(), P(), P("tiles", None, None), P(), P("tiles")),
         out_specs=P("tiles", None, None),
+        check_vma=False,   # Pallas kernel bodies carry no vma types
     )(scene, camera, state.accum, state.n_samples, dev_ids)
     return RenderState(accum=accum,
                        n_samples=state.n_samples + config.spp_per_pass)
-
-
-def block_order_rows(img_rows, config):
-    """Map an (n_rows, W, 3) image to the flat (n_rows * W * 3,) traced
-    ray order of `_trace_rows(..., flat=True)` — identity reshape in row
-    order, the 32x32 pixel-block permutation when the pallas tracer is
-    active. Used on loss *targets* so flat traced radiance can be
-    compared without un-permuting (and thus without any transpose on the
-    reverse-mode path)."""
-    from ..render import BLOCK
-
-    n_rows, w = img_rows.shape[0], img_rows.shape[1]
-    blocked = (config.use_pallas and n_rows % BLOCK == 0 and w % BLOCK == 0)
-    if blocked:
-        img_rows = img_rows.reshape(
-            n_rows // BLOCK, BLOCK, w // BLOCK, BLOCK, 3
-        ).transpose(0, 2, 1, 3, 4)
-    return img_rows.reshape(-1)
 
 
 def _trace_rows(scene, camera, frame, config, row0, n_rows, rays_per_tile,
                 flat: bool = False):
     """Trace rows [row0, row0 + n_rows) -> (n_rows, W, 3) radiance.
 
-    flat=True returns the radiance 1-D (n_rows * W * 3,) xyz-interleaved
-    in TRACED order (block order when the pallas tracer is active —
-    see block_order_rows, which maps an image into the same order):
-    the differentiable loss path (parallel.autodiff) compares
-    flat-vs-flat so neither an (H, W, 3) array — a 42.7x layout-padded
-    256 MB buffer at the bench shape — nor a transpose ever sits on the
-    reverse-mode path; the cotangent of the whole image is one dense
-    1-D vector.
-
-    Like render._trace_image, pixels are traced in 32x32-block order when
-    the pallas tracer is active: each ray tile then covers a compact image
-    square instead of full rows, which intersects ~4x fewer BVH clusters
-    per tile (measured, render.py BLOCK note). The reorder is a static
-    permutation of the device-local ray index, inverted on the way out, so
-    per-pixel results are bitwise-identical to row order."""
-    from ..render import BLOCK
-
+    flat=True returns the radiance 1-D (n_rows * W * 3,), row-major and
+    xyz-interleaved: the differentiable loss path (parallel.autodiff)
+    compares it with the flattened target, so the cotangent of the whole
+    image is one dense 1-D vector."""
     w = config.width
     n_rays = n_rows * w
-    local = jnp.arange(n_rays, dtype=jnp.uint32)
-    blocked = (config.use_pallas and n_rows % BLOCK == 0 and w % BLOCK == 0)
-    if blocked:
-        local = local.reshape(
-            n_rows // BLOCK, BLOCK, w // BLOCK, BLOCK
-        ).transpose(0, 2, 1, 3).reshape(-1)
-    pixel_id = local + jnp.uint32(w) * row0.astype(jnp.uint32)
+    pixel_id = (jnp.arange(n_rays, dtype=jnp.uint32)
+                + jnp.uint32(w) * row0.astype(jnp.uint32))
 
     xs = (pixel_id % jnp.uint32(w)).astype(jnp.float32)
     ys = (pixel_id // jnp.uint32(w)).astype(jnp.float32)
@@ -266,8 +235,4 @@ def _trace_rows(scene, camera, frame, config, row0, n_rows, rays_per_tile,
     ).reshape(-1, 3)[:n_rays]
     if flat:
         return radiance.reshape(-1)
-    if blocked:
-        radiance = radiance.reshape(
-            n_rows // BLOCK, w // BLOCK, BLOCK, BLOCK, 3
-        ).transpose(0, 2, 1, 3, 4)
     return radiance.reshape(n_rows, w, 3)

@@ -35,7 +35,7 @@ from .models.scene import SceneData
 from .ops.integrator import trace_radiance
 from .ops import tonemap
 from .ops.sampling import rand01
-from .utils.config import RenderConfig
+from .utils.config import RenderConfig, XLA_OPTIONS
 
 
 class RenderState(NamedTuple):
@@ -52,18 +52,14 @@ def init_render_state(config: RenderConfig) -> RenderState:
     )
 
 
-BLOCK = 32  # pixel-block side: 32x32 = one scheduled-tracer ray tile
-
-
 def tile_traced(scene, frame, config):
     """Checkpointed FLAT per-tile trace: (3T,), (3T,), (T,) -> (3T,).
 
     The lax.map over ray tiles is a reverse-mode AD boundary: without a
     checkpoint, every shading intermediate the backward sweep needs is
     saved *stacked per tile*, and any materialized f32[T, 3] / f32[T, 1]
-    is layout-padded 42.7x / 128x to TPU T(8, 128) tiles — at the bench
-    shape that is 64 MB per buffer and an HBM OOM (BENCH_r04 rc=1). Two
-    countermeasures, both exact:
+    would be saved per tile at full size. Two countermeasures, both
+    exact:
 
       * the whole tile is jax.checkpoint'ed with the save-only-"hit"
         policy, so per tile only the named traversal outputs (all flat
@@ -72,8 +68,7 @@ def tile_traced(scene, frame, config):
         already uses, lifted to the tile level;
       * every value crossing the map/checkpoint boundary is 1-D: ray
         origins/directions enter as (3T,) and radiance leaves as (3T,)
-        (xyz-interleaved reshape, a relayout-free bitcast), so stacked
-        carries pad ~1x instead of 42.7x.
+        (xyz-interleaved reshape, a relayout-free bitcast).
     """
 
     def tile(o3, d3, pid):
@@ -93,22 +88,13 @@ def tile_traced(scene, frame, config):
 def _trace_image(scene: SceneData, camera: Camera, frame, config: RenderConfig,
                  rays_per_tile: int = 65536):
     """One sample per pixel -> (H, W, 3) radiance. frame is the 1-based
-    progressive index (camera.loopNum + 1, glsl:1325/1409).
-
-    When the scheduled tracer is active, pixels are traced in 32x32-block
-    order so each 1024-ray tile covers a compact image square instead of a
-    full image row — block tiles intersect ~4x fewer BVH clusters (the
-    fragment-shader analogue is the GPU's native 2D warp rasterization
-    order, which the reference gets for free)."""
+    progressive index (camera.loopNum + 1, glsl:1325/1409). Pixels are
+    traced in row order: a kernel block of consecutive pixels is a short
+    image row segment, coherent enough for the primary cast."""
     n_pix = config.n_pixels
     h, w = config.height, config.width
-    blocked = (config.use_pallas and h % BLOCK == 0 and w % BLOCK == 0)
 
     pixel_id = jnp.arange(n_pix, dtype=jnp.uint32)
-    if blocked:
-        pixel_id = pixel_id.reshape(
-            h // BLOCK, BLOCK, w // BLOCK, BLOCK
-        ).transpose(0, 2, 1, 3).reshape(-1)
 
     px = (pixel_id % w).astype(jnp.float32)
     py = (pixel_id // w).astype(jnp.float32)
@@ -137,10 +123,6 @@ def _trace_image(scene: SceneData, camera: Camera, frame, config: RenderConfig,
          direction.reshape(n_tiles, tile * 3),
          pixel_id.reshape(n_tiles, tile)),
     ).reshape(-1, 3)[:n_pix]
-    if blocked:
-        return radiance.reshape(
-            h // BLOCK, w // BLOCK, BLOCK, BLOCK, 3
-        ).transpose(0, 2, 1, 3, 4).reshape(h, w, 3)
     return radiance.reshape(h, w, 3)
 
 
@@ -157,7 +139,8 @@ def _one_pass(scene: SceneData, camera: Camera, state: RenderState,
                        n_samples=n + config.spp_per_pass)
 
 
-@functools.partial(jax.jit, static_argnames=("config", "rays_per_tile"))
+@functools.partial(jax.jit, static_argnames=("config", "rays_per_tile"),
+                   compiler_options=XLA_OPTIONS)
 def render_pass(scene: SceneData, camera: Camera, state: RenderState,
                 config: RenderConfig, rays_per_tile: int = 65536
                 ) -> RenderState:
@@ -167,7 +150,7 @@ def render_pass(scene: SceneData, camera: Camera, state: RenderState,
 
 @functools.partial(
     jax.jit, static_argnames=("config", "n_passes", "rays_per_tile"),
-    donate_argnames=("state",))
+    donate_argnames=("state",), compiler_options=XLA_OPTIONS)
 def render_passes(scene: SceneData, camera: Camera, state: RenderState,
                   config: RenderConfig, n_passes: int,
                   rays_per_tile: int = 65536) -> RenderState:

@@ -1,92 +1,44 @@
 """Persistent XLA compilation cache.
 
-The render pass is one large fused program (traversal kernels + Disney
-shading + media + MIS under a bounce fori_loop); a cold XLA+Mosaic compile
-of the flagship 1024x512x8 configuration takes minutes. The reference never
-pays this (GLSL programs compile in milliseconds at startup,
-src/core/Shader.h:21-108) — so to keep edit/re-render iteration interactive
-the framework enables JAX's persistent compilation cache: identical
-programs are served from disk across processes and rounds.
+The render pass is one large fused program (traversal kernel + Disney
+shading + media + MIS under a bounce loop); a cold compile of the flagship
+1024x512x8 configuration takes a long time. The reference never pays this
+(GLSL programs compile in milliseconds at startup,
+src/core/Shader.h:21-108) — so to keep edit/re-render iteration
+interactive the framework enables JAX's persistent compilation cache:
+identical programs are served from disk across processes.
 
-Enabled automatically on package import (see __init__.py). Opt out with
-ORTF_NO_CACHE=1; point elsewhere with ORTF_CACHE_DIR=/path.
+Enabled on package import (see __init__.py). Where the environment sets
+JAX_COMPILATION_CACHE_DIR, JAX already reads it and that directory is the
+only one used. Otherwise the cache lives at the fixed path
+`<checkout>/.jax_cache/` (git-ignored): a fixed path keeps cache keys
+stable from one run to the next. ORTF_NO_CACHE=1 turns it off.
 """
 
 from __future__ import annotations
 
-import hashlib
 import os
-import platform
 
-_DEFAULT_DIR = os.path.expanduser("~/.cache/ortf/jax")
-
-
-def _host_tag() -> str:
-    """Fingerprint of the host CPU's feature set.
-
-    XLA's persistent-cache key does NOT cover the host machine for CPU
-    AOT results: an entry compiled on a machine with different CPU
-    features loads here with `Machine type used for XLA:CPU compilation
-    doesn't match...` and can hang or SIGILL mid-execution (observed
-    2026-08-21: 2 of 8 virtual-mesh device threads never reached their
-    all-reduce rendezvous -> spurious 40 s abort of the sharded tests).
-    Scoping the cache directory by host fingerprint makes stale
-    cross-machine entries unreachable instead of fatal."""
-    feats = platform.machine()
-    try:
-        with open("/proc/cpuinfo") as fh:
-            for line in fh:
-                if line.startswith(("flags", "Features")):
-                    feats = line.strip()
-                    break
-    except OSError:  # pragma: no cover - non-procfs platform
-        pass
-    try:
-        import jax
-        plats = jax.config.jax_platforms or ""
-    except Exception:  # pragma: no cover
-        plats = ""
-    if "cpu" in plats.split(","):
-        # XLA:CPU AOT results additionally bake in LLVM's CPUID-detected
-        # feature set, which can differ between hosts that present the
-        # SAME /proc/cpuinfo flags (VM feature masking). Observed
-        # 2026-08-21: entries carried over from the round-4 machine
-        # loaded here with "Machine type used for XLA:CPU compilation
-        # doesn't match..." and their reassociated float codegen broke
-        # the suite's bitwise-equality contracts by ~4e-7 (cached vs
-        # locally-compiled program). Scope CPU-backend caches by boot so
-        # only entries this machine compiled itself are reachable; TPU
-        # entries (target-independent for the host) keep the shared dir.
-        try:
-            with open("/proc/sys/kernel/random/boot_id") as fh:
-                feats += fh.read()
-        except OSError:  # pragma: no cover
-            pass
-    return hashlib.sha256(feats.encode()).hexdigest()[:12]
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), ".jax_cache")
 
 
-def enable_compilation_cache(path: str | None = None) -> str | None:
+def enable_compilation_cache() -> str | None:
     """Configure jax's persistent compilation cache (idempotent).
 
-    Returns the cache directory, or None when disabled via ORTF_NO_CACHE
-    or when jax is unavailable/already configured by the user.
-    """
+    Returns the cache directory in use, or None when disabled via
+    ORTF_NO_CACHE=1."""
     if os.environ.get("ORTF_NO_CACHE") == "1":
         return None
-    try:
-        import jax
-    except Exception:  # pragma: no cover - jax missing/broken
-        return None
-    if jax.config.jax_compilation_cache_dir:   # user already configured
-        return jax.config.jax_compilation_cache_dir
-    cache_dir = path or os.environ.get("ORTF_CACHE_DIR", _DEFAULT_DIR)
-    cache_dir = os.path.join(cache_dir, _host_tag())
-    try:
+    import jax
+
+    cache_dir = jax.config.jax_compilation_cache_dir
+    if not cache_dir:   # JAX_COMPILATION_CACHE_DIR unset
+        cache_dir = DEFAULT_DIR
         os.makedirs(cache_dir, exist_ok=True)
         jax.config.update("jax_compilation_cache_dir", cache_dir)
-        # cache everything that took real compile effort
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:  # pragma: no cover - older jax flag names
-        return None
+    # cache everything that took real compile effort
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
     return cache_dir

@@ -13,6 +13,18 @@ from __future__ import annotations
 
 import dataclasses
 
+TRACERS = ("kernel", "whileloop")
+
+# Compile options of the package's jitted entry points (render_pass,
+# render_passes, the gradient and sharded steps). XLA's GPU priority
+# fusion can form multi-output Triton fusions that make its fusion graph
+# cyclic on the integrator's compaction branches; the compiler then aborts
+# the process ("A cycle is detected while visiting instruction", seen on
+# an H100 compiling render_pass at 1024x512x8 with either tracer). Turning
+# that fusion kind off avoids it. Other backends ignore GPU options. A
+# caller that wraps an entry point in its own jit must pass these too.
+XLA_OPTIONS = {"xla_gpu_unsupported_enable_triton_multi_output_fusion": False}
+
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
@@ -47,8 +59,8 @@ class RenderConfig:
     # glsl:635-646, 1165-1186); the default fast path fetches nearest
     # texels from the fused env_fetch table (one row gather per site,
     # ops/envmap.py). Flip on for parity probes / quantifying the
-    # deviation (exp/env_bilinear_delta.py); costs 4 gathers + the
-    # separate cache/pdf lookups per site.
+    # deviation; costs 4 gathers + the separate cache/pdf lookups per
+    # site.
     env_bilinear: bool = False
 
     # Sampling.
@@ -60,52 +72,12 @@ class RenderConfig:
     # BVH leaf size used at build time (Scene.h:197 uses 8).
     bvh_leaf_size: int = 8
 
-    # Backend switches.
+    # Tracers.
     use_bvh: bool = True              # False -> brute force (oracle path)
-    # Cluster tracer (the TPU fast path). None = auto: resolved to True on
-    # a TPU backend at construction, False elsewhere (the Pallas TPU
-    # kernels need interpret mode off-TPU) — so `ortf.render(...)` uses
-    # the fast tracer out of the box on hardware.
-    use_pallas: bool | None = None
-    pallas_interpret: bool = False    # run the kernel interpreted (CPU tests)
-    # Which cluster tracer: "sweep" = single-kernel span sweep with manual
-    # HBM->VMEM double buffering (ops/sweep.py); "schedule" = the
-    # round-based vote/elect tracer (ops/schedule.py). Both are exact.
-    pallas_backend: str = "sweep"
-
-    # Scheduled-wavefront tracer knob (ops.schedule): clusters elected per
-    # 1024-ray tile per round. Purely a performance knob — the round loop
-    # runs until every ray's candidate list is exhausted, so any value
-    # >= 1 is exact.
-    sched_topk: int = 8
-    # Sweep-tracer rays per kernel tile (ops.sweep). Smaller tiles tighten
-    # each tile's union span list (less wasted work on incoherent bounce /
-    # shadow batches) at the cost of more grid steps; must be a multiple
-    # of 8 (VPU sublanes). Purely a performance knob — exact at any size.
-    # sweep_tile serves coherent primary casts; sweep_tile_secondary the
-    # incoherent bounce/NEE-shadow casts (exp/span_stats.py: tile unions
-    # shrink ~4x from 1024 -> 128 on secondary batches).
-    sweep_tile: int = 1024
-    sweep_tile_secondary: int = 64
-    # Logical ray tiles per sweep-kernel grid step ("supertiling"): the
-    # automatic block pipeline pays ~5 us per small-block DMA on this
-    # part, so batching S tiles' blocks into one transfer amortizes the
-    # fixed per-step cost S-fold (exp/grid_overhead.py). Purely a
-    # performance knob — each logical tile keeps its own span list and
-    # prune bound, so results are exact at any value >= 1.
-    sweep_supertile: int = 8
-    # Prefetch-ring depth of the sweep kernel's HBM->VMEM cluster DMAs.
-    # The kernel is DMA-latency-bound at small tiles (~5 us/span wait vs
-    # ~1-2 us/span compute, exp/cast_tune.py), so keeping depth-1 copies
-    # in flight overlaps consecutive spans' latencies. VMEM cost:
-    # depth x (16, 4*cluster_size) f32 (64 KB/slot at cluster_size 256).
-    # Purely a performance knob — exact at any value >= 2.
-    sweep_prefetch_depth: int = 8
-    # MXU precision for the Moller-Trumbore contraction: "highest" (f32
-    # multi-pass, ~1e-7 on t) or "default" (1-pass bf16 — ~2^-9 relative
-    # error on t, visible as self-intersection acne; only for throughput
-    # experiments). Mosaic does not implement the 3-pass "high" tier.
-    mxu_precision: str = "highest"
+    # "kernel": the Pallas/Triton BVH traversal kernel (ops/bvh_kernel.py),
+    # the measured fastest on an H100. "whileloop": the XLA wavefront
+    # traversal (ops/traverse.py), the reference it is checked against.
+    tracer: str = "kernel"
     # Rematerialization granularity of the backward pass. True wraps each
     # ray tile in jax.checkpoint (save-only-"hit"), so reverse-mode saves
     # only the flat traversal outputs per tile and replays the whole
@@ -122,9 +94,7 @@ class RenderConfig:
     #             shading) runs at the bucketed width. Fastest forward
     #             pass; under reverse-mode AD every switch branch is
     #             replayed AND transposed, and the boundary
-    #             materializations dominate the backward sweep (824 ms of
-    #             T(8,128)-padded scalar broadcasts per grad step at the
-    #             bench shape, exp/bwd_profile.py).
+    #             materializations add to the backward sweep.
     #   "casts" — only the (detached) traversal launches run bucketed;
     #             shading runs at full width. The switch carries no
     #             cotangents (stop_gradient'ed operands) and its hits are
@@ -134,21 +104,17 @@ class RenderConfig:
     #             gradients are exact in both modes.
     compaction_mode: str = "full"
     # compaction_mode the gradient entry points (parallel.autodiff)
-    # substitute for their internal render. "casts" nearly halves the
-    # measured grad step at the bench shape (2.59 s -> 1.36 s,
-    # exp/bwd_buckets_probe.py 2026-08-21) because the backward sweep
-    # never crosses a switch boundary; the forward-only render keeps
-    # "full" (0.97 s vs 1.12 s/pass). Set to "full" to force the grad
-    # programs onto the render path's exact program structure.
+    # substitute for their internal render: with "casts" the backward
+    # sweep never crosses a switch boundary. Set to "full" to force the
+    # grad programs onto the render path's exact program structure.
     grad_compaction_mode: str = "casts"
     # Wavefront compaction between bounces: partition alive rays to a dense
     # prefix each bounce and run the whole bounce (NEE shadow cast, BSDF
     # sample, bounce cast, shading) at the smallest bucketed width that
     # holds them (lax.switch over static widths R/1, R/2, R/4, R/8, R/16,
     # R/64 — see ops.integrator._BUCKET_DIVISORS — plus an all-dead skip).
-    # Measured alive fractions collapse to <5% by bounce 3
-    # on the bench scene (exp/alive_profile.py), so per-bounce work scales
-    # with live rays instead of launch width. Exact: compaction uses
+    # On glass scenes few paths survive the first bounces, so per-bounce
+    # work scales with live rays instead of launch width. Exact: compaction uses
     # bounce-start aliveness and dead lanes outside the prefix are
     # untouched. Costs ~3x extra traversal compiles (one per width).
     compaction_buckets: int = 6
@@ -165,13 +131,9 @@ class RenderConfig:
                 self, "height", max(1, int(round(self.height
                                                  * self.render_scale))))
             object.__setattr__(self, "render_scale", 1.0)
-        if self.use_pallas is None:
-            try:
-                import jax
-                fast = jax.default_backend() == "tpu"
-            except Exception:   # pragma: no cover - jax unavailable/broken
-                fast = False
-            object.__setattr__(self, "use_pallas", fast)
+        if self.tracer not in TRACERS:
+            raise ValueError(f"unknown tracer {self.tracer!r}; "
+                             f"one of {TRACERS}")
 
     def validate(self) -> "RenderConfig":
         if self.width <= 0 or self.height <= 0:
@@ -180,34 +142,6 @@ class RenderConfig:
             raise ValueError("max_bounce must be >= 1")
         if self.spp_per_pass < 1:
             raise ValueError("spp_per_pass must be >= 1")
-        if self.sched_topk < 1:
-            raise ValueError("sched_topk must be >= 1")
-        if self.pallas_backend not in ("sweep", "schedule"):
-            raise ValueError(f"unknown pallas_backend {self.pallas_backend}")
-        for f in ("sweep_tile", "sweep_tile_secondary"):
-            v = getattr(self, f)
-            if v < 8 or v % 8:
-                raise ValueError(f"{f} must be a multiple of 8, got {v}")
-        if not 2 <= self.sweep_prefetch_depth <= 32:
-            # VMEM scratch scales as depth x (16, 4*cluster) f32; bound it
-            # here so oversized values fail early instead of with an opaque
-            # Mosaic VMEM error.
-            raise ValueError("sweep_prefetch_depth must be in [2, 32]")
-        if not 1 <= self.sweep_supertile <= 64:
-            raise ValueError("sweep_supertile must be in [1, 64]")
-        # The sweep kernel's scratch VMEM scales as the PRODUCT
-        # supertile x depth ((s_tiles, depth, 16, 4*cluster) f32 prefetch
-        # rings ~= 64-80 KB/slot at the default 256-triangle clusters), so
-        # jointly-maximal values that pass the per-knob bounds can still
-        # blow the ~16 MB VMEM budget with an opaque Mosaic error — bound
-        # the product to ~8 MB of ring scratch here instead.
-        if self.sweep_supertile * self.sweep_prefetch_depth > 128:
-            raise ValueError(
-                "sweep_supertile * sweep_prefetch_depth must be <= 128 "
-                f"(got {self.sweep_supertile} * {self.sweep_prefetch_depth}"
-                f" = {self.sweep_supertile * self.sweep_prefetch_depth}): "
-                "the kernel's prefetch-ring VMEM scratch scales with the "
-                "product")
         if not 0 <= self.compaction_buckets <= 6:
             raise ValueError("compaction_buckets must be in [0, 6]")
         if self.compaction_mode not in ("full", "casts"):
@@ -216,8 +150,6 @@ class RenderConfig:
         if self.grad_compaction_mode not in ("full", "casts"):
             raise ValueError(f"unknown grad_compaction_mode "
                              f"{self.grad_compaction_mode!r}")
-        if self.mxu_precision not in ("default", "highest"):
-            raise ValueError(f"unknown mxu_precision {self.mxu_precision}")
         return self
 
     @property

@@ -1,14 +1,12 @@
 """Per-stage device-time breakdown (the `--timing` flag).
 
 The reference's only observability is the ImGui frame-time/FPS readout and
-the iteration counter (src/sources/main.cpp:366-372). This module gives the
-TPU build a real per-stage profile: each stage of a progressive pass is
+the iteration counter (src/sources/main.cpp:366-372). This module gives a
+per-stage profile: each stage of a progressive pass is
 timed as its own jitted sub-program with block_until_ready fences, at the
 true batch shapes and with *representative* ray populations:
 
   raygen          camera ray generation for one tile
-  sort            the coherence sort + gathers the sweep tracer pays per cast
-  tnear_spans     ray x cluster slab test + per-tile span ordering
   primary_cast    coherent closest-hit (camera rays)
   shadow_cast     incoherent any-hit from hit points toward env samples
   bounce_cast     incoherent closest-hit from hit points, hemisphere dirs
@@ -48,8 +46,6 @@ def pass_breakdown(scene, camera, config, rays_per_tile: int = 131072,
     from ..ops.intersect import surface_attributes
     from ..ops.integrator import PathState
     from ..ops.sampling import rand01
-    from ..ops.schedule import cluster_tnear
-    from ..ops.sweep import _sort_key
     from ..ops.traverse import closest_hit
     from ..render import init_render_state, render_pass
 
@@ -67,28 +63,6 @@ def pass_breakdown(scene, camera, config, rays_per_tile: int = 131072,
     times["raygen"] = _timeit(
         jax.jit(lambda uu, vv: camera.generate_rays(uu, vv)), uu, vv,
         repeats=repeats)
-
-    # coherence sort (what the sweep tracer pays per cast) -------------------
-    def do_sort(o, d):
-        tn = cluster_tnear(o, d, scene.cl_aabb_min, scene.cl_aabb_max)
-        key = _sort_key(tn, d, jnp.ones(o.shape[0], bool))
-        perm = jax.lax.sort((key, jnp.arange(o.shape[0], dtype=jnp.int32)),
-                            num_keys=1)[1]
-        return o[perm], d[perm], jnp.take(tn, perm, axis=0)
-
-    times["sort"] = _timeit(jax.jit(do_sort), o, d, repeats=repeats)
-
-    # tnear + span ordering ---------------------------------------------------
-    def do_spans(o, d):
-        from ..ops.intersect import INF
-        tn = cluster_tnear(o, d, scene.cl_aabb_min, scene.cl_aabb_max)
-        g = o.shape[0] // 1024
-        tile_tn = tn.reshape(g, 1024, -1).min(axis=1)
-        order = jnp.argsort(tile_tn, axis=1)
-        cap = jnp.max(jnp.where(tn < INF, tn, -INF), axis=1)
-        return order, cap
-
-    times["tnear_spans"] = _timeit(jax.jit(do_spans), o, d, repeats=repeats)
 
     # casts -------------------------------------------------------------------
     cast = jax.jit(

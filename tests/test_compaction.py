@@ -1,4 +1,4 @@
-"""Wavefront compaction and merged-cast exactness (ADVICE r4, medium).
+"""Wavefront compaction exactness.
 
 The integrator's between-bounce compaction (ops.integrator._compacted_bounce)
 claims exactness: bucketed alive-prefix execution must produce the SAME
@@ -8,8 +8,8 @@ floor in _bucket_widths, so these tests run at >= 2048 rays/tile where the
 make_branch gather/scatter path is actually taken — and assert bitwise
 equality, not allclose.
 
-Likewise, the sweep backend's merged NEE-shadow + bounce launch
-(ops.sweep.closest_hit_swept_pair) must equal two separate casts per ray.
+The merged NEE-shadow + bounce launch is checked against two separate
+casts in tests/test_bvh_kernel.py.
 """
 
 import numpy as np
@@ -21,8 +21,6 @@ from opengl_ray_tracing_framework_tpu.models.scene import build_test_scene
 from opengl_ray_tracing_framework_tpu.ops.integrator import _bucket_widths
 from opengl_ray_tracing_framework_tpu.render import render_radiance
 from opengl_ray_tracing_framework_tpu.utils.config import RenderConfig
-
-from test_schedule import random_rays
 
 
 @pytest.fixture(scope="module")
@@ -43,7 +41,7 @@ def test_compaction_bitwise_equal(scene):
     bitwise, at a 2048-ray tile (64x32, one tile per pass)."""
     cam = Camera.make(position=(0.0, 0.5, -2.0), yaw=90.0, pitch=-8.0,
                       zoom=30.0, aspect=2.0)
-    base = dict(width=64, height=32, max_bounce=6, use_pallas=False)
+    base = dict(width=64, height=32, max_bounce=6, tracer="whileloop")
     img_c = render_radiance(
         scene, cam, RenderConfig(compaction_buckets=6, **base),
         spp=2, rays_per_tile=2048)
@@ -56,13 +54,13 @@ def test_compaction_bitwise_equal(scene):
     assert (a == b).all(), f"max abs diff {np.abs(a - b).max()}"
 
 
-def test_compaction_bitwise_equal_sweep_interpret(scene):
-    """Same bitwise contract through the sweep (pallas interpret) backend,
-    where compaction additionally changes the kernel's launch widths."""
+def test_compaction_bitwise_equal_kernel(scene, interpret_kernel):
+    """Same bitwise contract through the default tracer, the BVH kernel
+    (run by the Pallas interpreter), where compaction additionally changes
+    the kernel's launch widths."""
     cam = Camera.make(position=(0.0, 0.5, -2.0), yaw=90.0, pitch=-8.0,
                       zoom=30.0, aspect=2.0)
-    base = dict(width=64, height=32, max_bounce=4, use_pallas=True,
-                pallas_backend="sweep", pallas_interpret=True)
+    base = dict(width=64, height=32, max_bounce=4, tracer="kernel")
     img_c = render_radiance(
         scene, cam, RenderConfig(compaction_buckets=6, **base),
         spp=1, rays_per_tile=2048)
@@ -74,43 +72,12 @@ def test_compaction_bitwise_equal_sweep_interpret(scene):
     assert (a == b).all(), f"max abs diff {np.abs(a - b).max()}"
 
 
-def test_pair_cast_equals_two_casts(scene):
-    """closest_hit_swept_pair (one mixed launch) == any-hit cast + closest
-    cast run separately, field-for-field, at 2048+2048 rays."""
-    from opengl_ray_tracing_framework_tpu.ops.sweep import (
-        closest_hit_swept,
-        closest_hit_swept_pair,
-    )
-
-    rng = np.random.default_rng(23)
-    o_any, d_any = random_rays(rng, 2048)
-    o_cls, d_cls = random_rays(rng, 2048)
-    m_any = jnp.asarray(rng.random(2048) < 0.8)
-    m_cls = jnp.asarray(rng.random(2048) < 0.8)
-    cfg = RenderConfig(pallas_interpret=True)
-
-    h_any, h_cls = closest_hit_swept_pair(
-        scene, o_any, d_any, m_any, o_cls, d_cls, m_cls, cfg,
-        interpret=True)
-    s_any = closest_hit_swept(scene, o_any, d_any, cfg, mask=m_any,
-                              any_hit=True, interpret=True, secondary=True)
-    s_cls = closest_hit_swept(scene, o_cls, d_cls, cfg, mask=m_cls,
-                              interpret=True, secondary=True)
-
-    # any-hit semantics: is_hit is the contract (the reported t/tri may be
-    # any occluder); closest-hit must match exactly
-    assert (np.asarray(h_any.tri >= 0) == np.asarray(s_any.tri >= 0)).all()
-    assert (np.asarray(h_cls.tri) == np.asarray(s_cls.tri)).all()
-    np.testing.assert_array_equal(np.asarray(h_cls.t), np.asarray(s_cls.t))
-    assert (np.asarray(h_cls.inside) == np.asarray(s_cls.inside)).all()
-
-
 def test_cast_compaction_bitwise_equal(scene):
     """compaction_mode="casts" (bucketed detached casts, full-width
     shading) == "full" == uncompacted, bitwise, at a 2048-ray tile."""
     cam = Camera.make(position=(0.0, 0.5, -2.0), yaw=90.0, pitch=-8.0,
                       zoom=30.0, aspect=2.0)
-    base = dict(width=64, height=32, max_bounce=6, use_pallas=False)
+    base = dict(width=64, height=32, max_bounce=6, tracer="whileloop")
     imgs = [np.asarray(render_radiance(
         scene, cam, RenderConfig(**kw, **base), spp=2, rays_per_tile=2048))
         for kw in (dict(compaction_mode="casts", compaction_buckets=6),
@@ -139,7 +106,7 @@ def test_cast_compaction_brdf_and_no_env(scene):
     for extra in (dict(enable_bsdf=False),
                   dict(enable_env_map=False),
                   dict(enable_bsdf=False, enable_env_map=False)):
-        base = dict(width=64, height=32, max_bounce=4, use_pallas=False,
+        base = dict(width=64, height=32, max_bounce=4, tracer="whileloop",
                     **extra)
         a = np.asarray(render_radiance(
             scene, cam,

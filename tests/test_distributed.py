@@ -4,8 +4,7 @@ Executes the actual multi-host bring-up path (parallel/sharding.py
 init_distributed -> global 2-device mesh -> render_pass_sharded) across
 two OS processes connected by the distributed runtime, and checks each
 process's row shard against an unsharded render. This is the committed
-evidence that the multi-host code path runs, not just compiles
-(VERDICT r3 missing #4 / weak #6).
+evidence that the multi-host code path runs, not just compiles.
 """
 
 import os

@@ -27,7 +27,8 @@ def test_material_grad_finite_256(mat_name):
     _, scene = build_test_scene(n_sphere_subdiv=2, material=presets[mat_name])
     camera = Camera.make(position=(0.0, 0.5, -2.0), yaw=90.0, pitch=-8.0,
                          zoom=30.0, aspect=1.0)
-    config = RenderConfig(width=256, height=256, max_bounce=8, spp_per_pass=1)
+    config = RenderConfig(width=256, height=256, max_bounce=8, spp_per_pass=1,
+                          tracer="whileloop")
     target = jnp.zeros((256, 256, 3), jnp.float32)
     loss, grads = material_grad(scene, camera, target, config,
                                 rays_per_tile=16384)
@@ -53,7 +54,8 @@ def test_grad_remat_policies_identical():
     out = {}
     for flag in (True, False):
         config = RenderConfig(width=32, height=32, max_bounce=3,
-                              spp_per_pass=1, grad_tile_checkpoint=flag)
+                              spp_per_pass=1, grad_tile_checkpoint=flag,
+                              tracer="whileloop")
         loss, grads = material_grad(scene, camera, target, config,
                                     rays_per_tile=256)
         out[flag] = (float(loss), [np.asarray(g) for g in

@@ -29,7 +29,8 @@ from opengl_ray_tracing_framework_tpu.render import (
 
 CAM = Camera.make(position=(0.0, 0.5, -2.0), yaw=90.0, pitch=-8.0,
                   zoom=30.0, aspect=1.0)
-CFG = ortf.RenderConfig(width=16, height=16, max_bounce=2, spp_per_pass=1)
+CFG = ortf.RenderConfig(width=16, height=16, max_bounce=2, spp_per_pass=1,
+                        tracer="whileloop")
 
 
 def test_material_grad_finite_and_informative(test_scene):
@@ -83,7 +84,7 @@ def test_camera_grad_finite(test_scene):
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 def test_sharded_render_matches_single_device(test_scene):
     cfg = ortf.RenderConfig(width=16, height=16, max_bounce=2,
-                            spp_per_pass=1)
+                            spp_per_pass=1, tracer="whileloop")
     mesh = make_mesh(jax.devices()[:8])
     scene_r = replicate_scene(test_scene, mesh)
 
@@ -107,7 +108,7 @@ def test_sharded_render_matches_single_device(test_scene):
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 def test_sharded_material_grad_matches_single(test_scene):
     cfg = ortf.RenderConfig(width=16, height=16, max_bounce=2,
-                            spp_per_pass=1)
+                            spp_per_pass=1, tracer="whileloop")
     mesh = make_mesh(jax.devices()[:8])
     scene_r = replicate_scene(test_scene, mesh)
     target = jnp.zeros((16, 16, 3), jnp.float32)
@@ -128,7 +129,7 @@ def test_sharded_camera_grad_matches_single(test_scene):
         param_grad_sharded,
     )
     cfg = ortf.RenderConfig(width=16, height=16, max_bounce=2,
-                            spp_per_pass=1)
+                            spp_per_pass=1, tracer="whileloop")
     mesh = make_mesh(jax.devices()[:8])
     scene_r = replicate_scene(test_scene, mesh)
     target = jnp.zeros((16, 16, 3), jnp.float32)
@@ -152,7 +153,7 @@ def test_sharded_geometry_grad_matches_single(test_scene):
         param_grad_sharded,
     )
     cfg = ortf.RenderConfig(width=16, height=16, max_bounce=2,
-                            spp_per_pass=1)
+                            spp_per_pass=1, tracer="whileloop")
     mesh = make_mesh(jax.devices()[:8])
     scene_r = replicate_scene(test_scene, mesh)
     target = jnp.zeros((16, 16, 3), jnp.float32)
@@ -176,7 +177,7 @@ def test_spp_axis_sharding_matches_single(test_scene):
         make_mesh_2d,
     )
     cfg = ortf.RenderConfig(width=16, height=16, max_bounce=2,
-                            spp_per_pass=4)
+                            spp_per_pass=4, tracer="whileloop")
     mesh = make_mesh_2d(jax.devices()[:8], n_tiles=4)   # 4 tiles x 2 spp
     scene_r = replicate_scene(test_scene, mesh)
 

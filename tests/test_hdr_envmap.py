@@ -160,7 +160,7 @@ def test_load_old_style_literal_first_pixel(tmp_path):
 def test_env_sample_nearest_unbiased():
     """MC estimate of the environment's total radiance through the NEE
     sampler must match the direct texel sum — the invariant the round-1
-    xi-addressed pdf fetch broke (ADVICE.md round 1, high)."""
+    xi-addressed pdf fetch once broke."""
     from opengl_ray_tracing_framework_tpu.models.hdr import build_env_fetch
 
     hdr = make_gradient_hdr(64, 32)

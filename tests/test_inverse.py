@@ -22,7 +22,8 @@ from opengl_ray_tracing_framework_tpu.parallel.autodiff import (
 
 CAM = Camera.make(position=(0.0, 0.5, -2.0), yaw=90.0, pitch=-8.0,
                   zoom=30.0, aspect=1.0)
-CFG = ortf.RenderConfig(width=16, height=16, max_bounce=2, spp_per_pass=1)
+CFG = ortf.RenderConfig(width=16, height=16, max_bounce=2, spp_per_pass=1,
+                        tracer="whileloop")
 
 
 def _render(scene, spp=2):
@@ -32,7 +33,7 @@ def _render(scene, spp=2):
 
 def test_fit_base_color_recovers_target():
     """Gradient descent recovers a perturbed base_color to < 5% in < 100
-    steps (VERDICT round 1, item 6)."""
+    steps."""
     true_color = np.asarray([0.75, 0.25, 0.2], np.float32)
     mat = Material.make(base_color=tuple(true_color), roughness=0.6)
     _, scene = build_test_scene(material=mat)

@@ -28,7 +28,8 @@ CAM = Camera.make(position=(0.0, 0.5, -2.0), yaw=90.0, pitch=-8.0,
 
 
 def _cfg(**kw):
-    base = dict(width=24, height=24, max_bounce=3, spp_per_pass=1)
+    base = dict(width=24, height=24, max_bounce=3, spp_per_pass=1,
+                tracer="whileloop")
     base.update(kw)
     return ortf.RenderConfig(**base)
 
