@@ -26,8 +26,9 @@ Phases (one card):
 With --four-cards only the sharded path runs: render_pass_sharded on a
 ("tiles",) mesh of four cards (1 spp) and on a (2, 2) ("tiles", "spp")
 mesh (2 spp) against one and two render_pass calls on one card, and
-material_grad_sharded / param_grad_sharded against material_grad on one
-card.
+material_grad_sharded / param_grad_sharded against the sum of the four
+row blocks' gradients on one card and against material_grad, with the
+controls that place the limit (see SHARD_GRAD_TOL).
 
 Every number is printed beside the card's name and power limit. A failed
 phase raises, so the script exits non-zero; the last line of stdout is the
@@ -53,12 +54,20 @@ PARITY_W, PARITY_H, PARITY_SPP = 256, 128, 2
 # Four cards: identical per-pixel work on every device, so the sharded
 # images match one card up to float ordering; the spp axis psum-means.
 SHARD_IMG_TOL = 1e-5     # rtol = atol per pixel channel
-# |g_sharded - g_one| <= tol * max|g_one| per leaf, and the loss likewise.
-# Each gradient is an f32 sum over 524,288 pixels whose terms partly
-# cancel, and one card sums its four row tiles in another order than four
-# cards do: on H100s the worst leaf differed by 6.4e-4 of its largest
-# entry while the loss agreed bitwise.
-SHARD_GRAD_TOL = 1e-3
+# Gradients are compared as max|g - g_ref| / max|g_ref| over the whole
+# material table. A leaf's own scale is no measure: a parameter the scene
+# barely depends on has a gradient at the level of f32 rounding noise
+# (.mat.anisotropic peaks at 8e-11 on the smoke scene, against 8.5e5 for
+# the whole table), and any change of program moves it by a large share.
+# On four H100s the sharded gradients differed from one card's by 6.5e-5,
+# while one card agreed with itself to 1e-7: the same program twice gave
+# 0, its four row blocks summed against material_grad 4e-8, that sum in
+# two f32 orders 7e-8. So the sharded program's per-device gradients
+# themselves differ a little; why is not known yet. A dropped row block
+# moves the gradient by 4.9e-2 and a missing cross-device sum by 0.59; the
+# phase computes both faults and requires them to exceed ten times the
+# limit.
+SHARD_GRAD_TOL = 1e-4
 
 
 def card() -> str:
@@ -180,7 +189,8 @@ def phase_forward(scene, cache: CacheCounter) -> dict:
 
 
 def phase_backward(scene, cache: CacheCounter) -> dict:
-    """One value_and_grad step of material_grad per call."""
+    """One value_and_grad step of material_grad per call, then an optax
+    step around it in a program of the caller's."""
     import jax.numpy as jnp
     import numpy as np
     from opengl_ray_tracing_framework_tpu import RenderConfig
@@ -188,6 +198,7 @@ def phase_backward(scene, cache: CacheCounter) -> dict:
     from opengl_ray_tracing_framework_tpu.parallel.autodiff import (
         material_grad,
     )
+    from opengl_ray_tracing_framework_tpu.utils.config import jit
 
     cfg = RenderConfig(width=W, height=H, max_bounce=BOUNCES)
     cam = Camera.make(aspect=W / H)
@@ -203,11 +214,43 @@ def phase_backward(scene, cache: CacheCounter) -> dict:
         step_s.append(s)
     assert np.isfinite(float(loss)) and float(loss) > 0, float(loss)
     assert _finite_grads(grads), "non-finite material gradients"
+
+    # an inverse-rendering step as a user writes it: material_grad and an
+    # optax update in one program of the caller's, made with the package's
+    # jit so that its compile options reach the inlined render
+    import optax
+    opt = optax.adam(1e-2)
+
+    def fit_step(scene, cam, target, table, opt_state):
+        loss, g = material_grad(scene.with_materials(table), cam, target,
+                                cfg, spp=1, rays_per_tile=TILE)
+        upd, opt_state = opt.update(g.mat.base_color, opt_state)
+        bc = jnp.clip(table.mat.base_color + upd, 0.0, 1.0)
+        return loss, table._replace(mat=table.mat._replace(base_color=bc)), \
+            opt_state
+
+    step = jit(fit_step)
+    table = scene.materials
+    h0 = cache.hits
+    (fit_loss, table1, opt_state), fit_first_s = _timed(lambda: step(
+        scene, cam, target, table, opt.init(table.mat.base_color)))
+    fit_label = cache.label(h0)
+    _, fit_s = _timed(lambda: step(scene, cam, target, table1,
+                                           opt_state))
+    fit_rel = abs(float(fit_loss) - float(loss)) / float(loss)
+    moved = np.abs(np.asarray(table1.mat.base_color)
+                   - np.asarray(table.mat.base_color)).max()
+    assert fit_rel <= 1e-4, ("optax step loss", float(fit_loss), float(loss))
+    assert np.isfinite(np.asarray(table1.mat.base_color)).all() \
+        and moved > 0, "optax step did not update base_color"
     rays = W * H * (1 + 2 * BOUNCES)
     return {
         "tracer": cfg.tracer, "first_call_s": first_s,
         "first_call": first_label, "step_s": step_s,
         "bwd_rays_per_s": rays / min(step_s), "loss": float(loss),
+        "optax_step_first_call_s": fit_first_s,
+        "optax_step_first_call": fit_label, "optax_step_s": fit_s,
+        "optax_step_loss_rel_err": fit_rel,
     }
 
 
@@ -302,9 +345,109 @@ def _close(a, b, tol):
             "outside_frac": float(outside.mean())}
 
 
+def _float_leaves(tree) -> dict:
+    """{path: float64 array} of a gradient pytree's float leaves."""
+    import jax
+    import numpy as np
+    return {jax.tree_util.keystr(k): np.asarray(v, np.float64)
+            for k, v in jax.tree_util.tree_leaves_with_path(tree)
+            if v.dtype != jax.dtypes.float0}
+
+
+def _grad_err(g: dict, ref: dict) -> dict:
+    """max|g - ref| / max|ref| over the whole gradient ("err", reached in
+    "err_leaf"), and the leaf worst by its own scale, max|g - ref| /
+    max|ref| in that leaf."""
+    import numpy as np
+    peak = {k: float(np.abs(r).max()) for k, r in ref.items()}
+    diff = {k: float(np.abs(g[k] - r).max()) for k, r in ref.items()}
+    own = {k: diff[k] / max(peak[k], 1e-30) for k in ref}
+    leaf = max(own, key=own.get)
+    return {"err": max(diff.values()) / max(peak.values()),
+            "err_leaf": max(diff, key=diff.get),
+            "worst_leaf": leaf, "worst_leaf_err": own[leaf],
+            "worst_leaf_max": peak[leaf], "grad_max": max(peak.values())}
+
+
+def _one_card_grads(scene, cfg, cam, target) -> dict:
+    """On one card: material_grad twice (the second run is the same
+    program again: a determinism control), and the gradient of each of the
+    four row blocks alone, the work one device of the sharded step does."""
+    import jax
+    import jax.numpy as jnp
+    from opengl_ray_tracing_framework_tpu.parallel.autodiff import (
+        material_grad,
+        material_loss,
+    )
+    from opengl_ray_tracing_framework_tpu.utils.config import jit
+
+    grads = [material_grad(scene, cam, target, cfg, spp=1,
+                           rays_per_tile=TILE) for _ in range(2)]
+    rows = H // 4
+    gcfg = cfg.replace(compaction_mode=cfg.grad_compaction_mode)
+    # every array enters as an argument: a closed-over camera would be
+    # constant-folded, which perturbs the rays and the gradient with them
+    block = jit(lambda scene, cam, target_rows, row0: jax.value_and_grad(
+        material_loss, allow_int=True)(
+            scene.materials, scene, cam, target_rows, gcfg, row0, rows, 1,
+            TILE))
+    blocks = [block(scene, cam, target[k * rows:(k + 1) * rows],
+                    jnp.int32(k * rows)) for k in range(4)]
+    return jax.block_until_ready({"grads": grads, "blocks": blocks})
+
+
+def _grad_controls(one: dict) -> tuple:
+    """The one-card gradient controls: the same program twice; the four
+    blocks summed in f32 in two orders; the blocks' sum against
+    material_grad; and the faults a limit must catch: the smallest error
+    a dropped row block causes, and one device's gradient without the
+    cross-device sum. Returns (controls, material_grad's gradient, the
+    blocks' sum), the gradients as _float_leaves."""
+    import numpy as np
+    (_, g1), (_, g1b) = one["grads"]
+    g1, g1b = _float_leaves(g1), _float_leaves(g1b)
+    blocks = [_float_leaves(g) for _, g in one["blocks"]]
+    block_sum = {k: sum(b[k] for b in blocks) for k in g1}
+    f32_up = {k: sum(b[k].astype(np.float32) for b in blocks) for k in g1}
+    f32_down = {k: sum(b[k].astype(np.float32) for b in blocks[::-1])
+                for k in g1}
+    dropped = [_grad_err({k: v - b[k] for k, v in block_sum.items()}, g1)
+               for b in blocks]
+    return {
+        "material_grad_twice": _grad_err(g1b, g1),
+        "block_sum_order_f32": _grad_err(f32_down, f32_up),
+        "block_sum_vs_material_grad": _grad_err(block_sum, g1),
+        "fault_dropped_block": min(dropped, key=lambda m: m["err"]),
+        "fault_no_sum": _grad_err(blocks[0], g1),
+    }, g1, block_sum
+
+
+def _one_card_reference(scene, cfg, cam, target) -> dict:
+    """What the sharded path is compared with, on one card: render_pass
+    frames 1 and 2, and _one_card_grads."""
+    import jax
+    from opengl_ray_tracing_framework_tpu.render import (
+        init_render_state,
+        render_pass,
+    )
+
+    states = [init_render_state(cfg)]
+    for _ in range(2):
+        states.append(render_pass(scene, cam, states[-1], cfg,
+                                  rays_per_tile=TILE))
+    one = _one_card_grads(scene, cfg, cam, target)
+    one["images"] = jax.block_until_ready([s.accum for s in states])
+    return one
+
+
 def phase_four_cards(scene, devices, label: str) -> dict:
-    """The sharded path on four cards against one card. Each comparison is
-    printed as it is made, so a failing one still shows its numbers."""
+    """The sharded path on four cards against one card. The one-card
+    reference runs on the first card in a second thread while the sharded
+    programs compile and run (single-card programs hold no collectives),
+    so the two overlap. Each comparison is printed as it
+    is made, so a failing one still shows its numbers."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -312,7 +455,6 @@ def phase_four_cards(scene, devices, label: str) -> dict:
     from opengl_ray_tracing_framework_tpu import RenderConfig
     from opengl_ray_tracing_framework_tpu.models.camera import Camera
     from opengl_ray_tracing_framework_tpu.parallel.autodiff import (
-        material_grad,
         material_grad_sharded,
         param_grad_sharded,
     )
@@ -323,69 +465,72 @@ def phase_four_cards(scene, devices, label: str) -> dict:
         replicate_scene,
     )
     from opengl_ray_tracing_framework_tpu.render import (
+        RenderState,
         init_render_state,
-        render_pass,
     )
 
     assert len(devices) >= 4, f"--four-cards needs 4 GPUs, have {devices}"
     devices = devices[:4]
     cfg = RenderConfig(width=W, height=H, max_bounce=BOUNCES)
     cam = Camera.make(aspect=W / H)
+    target = jnp.zeros((H, W, 3), jnp.float32)
     out = {}
 
-    # one card, two passes of one sample: frames 1 and 2, the same frames
-    # a 2-spp pass on the ("tiles", "spp") mesh splits over its spp axis
-    ones = [init_render_state(cfg)]
-    for _ in range(2):
-        ones.append(render_pass(scene, cam, ones[-1], cfg,
-                                rays_per_tile=TILE))
-    for name, mesh, spp in (("tiles4", make_mesh(devices), 1),
-                            ("tiles2_spp2", make_mesh_2d(devices, n_tiles=2),
-                             2)):
-        one_img = np.asarray(ones[spp].accum)
-        assert np.isfinite(one_img).all() and one_img.mean() > 0.01
-        mcfg = cfg.replace(spp_per_pass=spp)
+    with ThreadPoolExecutor(1) as pool:
+        one_future = pool.submit(_one_card_reference, scene, cfg, cam,
+                                 target)
+        images = {}
+        # a 1-spp pass on the ("tiles",) mesh renders frame 1; a 2-spp pass
+        # on the ("tiles", "spp") mesh splits frames 1 and 2 over its spp
+        # axis: one card's states after one and two passes
+        for name, mesh, spp in (("tiles4", make_mesh(devices), 1),
+                                ("tiles2_spp2",
+                                 make_mesh_2d(devices, n_tiles=2), 2)):
+            mcfg = cfg.replace(spp_per_pass=spp)
+            st = jax.device_put(init_render_state(mcfg), RenderState(
+                accum=NamedSharding(mesh, P("tiles", None, None)),
+                n_samples=NamedSharding(mesh, P())))
+            st = render_pass_sharded(replicate_scene(scene, mesh), cam, st,
+                                     mcfg, mesh, rays_per_tile=TILE)
+            assert int(st.n_samples) == spp
+            images[name] = (np.asarray(st.accum), spp)
+        mesh = make_mesh(devices)
         scene_r = replicate_scene(scene, mesh)
-        st = jax.device_put(init_render_state(mcfg), type(ones[0])(
-            accum=NamedSharding(mesh, P("tiles", None, None)),
-            n_samples=NamedSharding(mesh, P())))
-        st, s = _timed(lambda: render_pass_sharded(
-            scene_r, cam, st, mcfg, mesh, rays_per_tile=TILE))
-        img = np.asarray(st.accum)
+        sharded = {}
+        for name, fn in (("material_grad_sharded", material_grad_sharded),
+                         ("param_grad_sharded", param_grad_sharded)):
+            loss, g = fn(scene_r, cam, target, cfg, mesh, rays_per_tile=TILE)
+            assert _finite_grads(g), name
+            sharded[name] = (float(loss), _float_leaves(g))
+        one = one_future.result()
+
+    for name, (img, spp) in images.items():
+        one_img = np.asarray(one["images"][spp])
+        assert np.isfinite(one_img).all() and one_img.mean() > 0.01
         m = _close(img, one_img, SHARD_IMG_TOL)
-        m["first_call_s"] = s
         print(f"four cards {name} vs one card [{label}]: {_fmt(m)}",
               flush=True)
-        assert int(st.n_samples) == spp
         assert m["outside_frac"] < 1e-3, (name, m)
         out[name] = m
 
-    target = jnp.zeros((H, W, 3), jnp.float32)
-    loss1, g1 = material_grad(scene, cam, target, cfg, spp=1,
-                              rays_per_tile=TILE)
-    mesh = make_mesh(devices)
-    scene_r = replicate_scene(scene, mesh)
-    for name, fn in (("material_grad_sharded", material_grad_sharded),
-                     ("param_grad_sharded", param_grad_sharded)):
-        loss, g = fn(scene_r, cam, target, cfg, mesh, rays_per_tile=TILE)
-        m = {"grad_err_over_max": 0.0, "worst_leaf": None}
-        for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(g),
-                                jax.tree.leaves(g1)):
-            if b.dtype == jax.dtypes.float0:
-                continue
-            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-            err = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
-            if err >= m["grad_err_over_max"]:
-                m = {"grad_err_over_max": err,
-                     "worst_leaf": jax.tree_util.keystr(path),
-                     "worst_leaf_max_abs_grad": float(np.abs(b).max())}
-        m["loss_rel_err"] = abs(float(loss) - float(loss1)) / abs(float(loss1))
-        print(f"four cards {name} vs material_grad [{label}]: {_fmt(m)}",
-              flush=True)
-        assert _finite_grads(g), name
-        assert m["grad_err_over_max"] <= SHARD_GRAD_TOL \
+    loss1 = float(one["grads"][0][0])
+    controls, g1, block_sum = _grad_controls(one)
+    print(f"four cards gradient controls [{label}]: {_fmt(controls)}",
+          flush=True)
+    out["controls"] = controls
+    for name, (loss, g) in sharded.items():
+        m = {"vs_block_sum": _grad_err(g, block_sum),
+             "vs_material_grad": _grad_err(g, g1),
+             "loss_rel_err": abs(loss - loss1) / abs(loss1)}
+        print(f"four cards {name} [{label}]: {_fmt(m)} (limit: err and "
+              f"loss_rel_err <= {SHARD_GRAD_TOL})", flush=True)
+        assert m["vs_block_sum"]["err"] <= SHARD_GRAD_TOL \
+            and m["vs_material_grad"]["err"] <= SHARD_GRAD_TOL \
             and m["loss_rel_err"] <= SHARD_GRAD_TOL, (name, m)
         out[name] = m
+    for fault in ("fault_dropped_block", "fault_no_sum"):
+        assert controls[fault]["err"] > 10 * SHARD_GRAD_TOL, \
+            (fault, "the gradient limits would not catch it", controls)
     return out
 
 
@@ -419,8 +564,10 @@ def main(argv=None) -> int:
     count = len(devices)
     if args.four_cards:
         print(f"four cards tolerances: image rtol=atol={SHARD_IMG_TOL} on "
-              f"all but <0.1% of channels; gradients and loss "
-              f"{SHARD_GRAD_TOL} relative", flush=True)
+              f"all but <0.1% of channels; gradients max|g - g_ref| <= "
+              f"{SHARD_GRAD_TOL} max|g_ref| against the one-card row blocks "
+              f"and against material_grad, loss {SHARD_GRAD_TOL} relative",
+              flush=True)
         phase_four_cards(scene, devices, gpu)
         count = 4
     else:

@@ -25,7 +25,7 @@ from .utils.cache import enable_compilation_cache
 # (utils/cache.py).
 enable_compilation_cache()
 
-from .utils.config import RenderConfig
+from .utils.config import RenderConfig, jit
 from .models.material import Material, MaterialTable, MEDIUM_NONE, MEDIUM_ABSORB, MEDIUM_SCATTER, MEDIUM_EMISSIVE
 from .models.camera import Camera
 from .models.scene import Scene, SceneData
@@ -33,6 +33,7 @@ from .render import render, render_progressive, RenderState, init_render_state, 
 
 __all__ = [
     "RenderConfig",
+    "jit",
     "Material",
     "MaterialTable",
     "Camera",

@@ -18,12 +18,18 @@ triangle permutation instead of sorting caller arrays in place.
 
 from __future__ import annotations
 
-import sys
 from typing import NamedTuple
 
 import numpy as np
 
 _BIG = np.float32(1145141919.0)  # the reference's AABB init sentinel (BVH.h:55)
+
+# Slots of the tracers' per-ray traversal stacks (ops.bvh_kernel,
+# ops.traverse). A walk keeps at most depth + 1 nodes there, so build_bvh
+# refuses trees deeper than STACK_DEPTH - 1: a push past the stack would
+# lose a subtree. The reference's stack has 256 slots (glsl:344); SAH trees
+# of the reference's scenes are far shallower than 63.
+STACK_DEPTH = 64
 
 
 class FlatBVH(NamedTuple):
@@ -55,10 +61,12 @@ def _surface(ext: np.ndarray) -> np.ndarray:
 
 
 def build_bvh(p1: np.ndarray, p2: np.ndarray, p3: np.ndarray,
-              leaf_size: int = 8, method: str = "sah") -> FlatBVH:
+              leaf_size: int = 8, method: str = "sah",
+              max_depth: int = STACK_DEPTH - 1) -> FlatBVH:
     """Build the flattened BVH. p1/p2/p3: (N, 3) float32 world triangles.
 
-    method: "sah" (BVH.h:110-241) or "median" (BVH.h:46-106).
+    method: "sah" (BVH.h:110-241) or "median" (BVH.h:46-106). Raises
+    ValueError when a leaf lies deeper than max_depth below the root.
     """
     n = p1.shape[0]
     if n == 0:
@@ -90,11 +98,13 @@ def build_bvh(p1: np.ndarray, p2: np.ndarray, p3: np.ndarray,
     # node so that "child == 0" means "no child" and the root lands at 1).
     alloc()
 
-    old_limit = sys.getrecursionlimit()
-    sys.setrecursionlimit(max(old_limit, 10000 + 64 * int(np.log2(n + 2))))
-
-    def build_range(lo: int, hi: int) -> int:
+    def build_range(lo: int, hi: int, depth: int) -> int:
         """Build over order[lo:hi] (half-open), return node id."""
+        if depth > max_depth:
+            raise ValueError(
+                f"BVH deeper than {max_depth} levels, more than the "
+                f"traversal stack holds; build with method='median' "
+                f"(depth log2(N / leaf_size))")
         node = alloc()
         idx = order[lo:hi]
         lo_box = tri_min[idx].min(axis=0)
@@ -140,14 +150,13 @@ def build_bvh(p1: np.ndarray, p2: np.ndarray, p3: np.ndarray,
             order[lo:hi] = best_order
             split = best_split
 
-        lchild = build_range(lo, lo + split)
-        rchild = build_range(lo + split, hi)
+        lchild = build_range(lo, lo + split, depth + 1)
+        rchild = build_range(lo + split, hi, depth + 1)
         left[node] = lchild
         right[node] = rchild
         return node
 
-    root = build_range(0, n)
-    sys.setrecursionlimit(old_limit)
+    root = build_range(0, n, 0)
     assert root == 1, f"root must be node 1, got {root}"
 
     return FlatBVH(

@@ -13,7 +13,9 @@ glsl:320-392). This kernel is that walk, one ray per GPU thread:
 - the traversal stack is per-ray scratch in device memory laid out
   (slot, lane), so lanes at the same depth touch one cache line. Its
   working set is tiny and stays in L1/L2; registers hold only per-ray
-  scalars;
+  scalars. A push onto a full stack is dropped, so a block never writes
+  outside its own slots; models.bvh.build_bvh refuses trees that could
+  fill it;
 - nodes and triangles are gathered straight from the scene's flat BVH
   (`SceneData.bvh_*`) and leaf-ordered `p1..p3`, so there is no second
   scene layout;
@@ -38,6 +40,7 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import triton as plgpu
 
+from ..models.bvh import STACK_DEPTH
 from .intersect import Hit, INF, PARALLEL_EPS, T_MIN
 
 ACTIVE = 1      # flag bit: trace this lane
@@ -102,7 +105,7 @@ def _kernel(ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref, flag_ref,
             left_ref, right_ref, count_ref, first_ref, bmin_ref, bmax_ref,
             p1_ref, p2_ref, p3_ref,
             t_ref, tri_ref, inside_ref, stack_ref,
-            *, block, leaf_size, max_steps):
+            *, block, depth, leaf_size, max_steps):
     lane = jnp.arange(block, dtype=jnp.int32)
     o = (ox_ref[...], oy_ref[...], oz_ref[...])
     d = (dx_ref[...], dy_ref[...], dz_ref[...])
@@ -117,8 +120,9 @@ def _kernel(ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref, flag_ref,
         return plgpu.load(at, mask=mask, other=other)
 
     def push(sp, val, mask):
-        plgpu.store(stack_ref.at[sp * block + lane], val, mask=mask)
-        return jnp.where(mask, sp + 1, sp)
+        ok = mask & (sp < depth)
+        plgpu.store(stack_ref.at[sp * block + lane], val, mask=ok)
+        return jnp.where(ok, sp + 1, sp)
 
     def pop(sp, mask):
         ok = mask & (sp > 0)
@@ -212,7 +216,7 @@ def _kernel(ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref, flag_ref,
 @functools.partial(jax.jit, static_argnames=(
     "stack_depth", "leaf_size", "block_rays", "interpret"))
 def closest_hit_kernel(scene, origin, direction, mask=None, any_hit=None, *,
-                       stack_depth: int = 64, leaf_size: int = 8,
+                       stack_depth: int = STACK_DEPTH, leaf_size: int = 8,
                        block_rays: int = 32, interpret: bool = False) -> Hit:
     """Closest hit of each ray against the scene BVH on the GPU.
 
@@ -241,7 +245,8 @@ def closest_hit_kernel(scene, origin, direction, mask=None, any_hit=None, *,
     n = n_blocks * block_rays
     out = lambda size, dtype: jax.ShapeDtypeStruct((size,), dtype)
     t, tri, inside, _ = pl.pallas_call(
-        functools.partial(_kernel, block=block_rays, leaf_size=leaf_size,
+        functools.partial(_kernel, block=block_rays, depth=depth,
+                          leaf_size=leaf_size,
                           max_steps=4 * scene.n_nodes + 64),
         out_shape=(out(n, jnp.float32), out(n, jnp.int32),
                    out(n, jnp.int32), out(n * depth, jnp.int32)),
@@ -252,7 +257,7 @@ def closest_hit_kernel(scene, origin, direction, mask=None, any_hit=None, *,
         compiler_params=plgpu.CompilerParams(
             num_warps=max(block_rays // 32, 1), num_stages=1),
         interpret=interpret,
-        name="bvh_closest_hit",
+        name="bvh_kernel",
     )(*cols, scene.bvh_left, scene.bvh_right, scene.bvh_count,
       scene.bvh_first, scene.bvh_min, scene.bvh_max,
       scene.p1, scene.p2, scene.p3)

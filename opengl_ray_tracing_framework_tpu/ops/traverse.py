@@ -23,10 +23,12 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+from ..models.bvh import STACK_DEPTH
 from .intersect import Hit, INF, ray_aabb_visit, ray_triangle
 
 
-def bvh_closest_hit(scene, origin, direction, stack_depth: int = 64,
+def bvh_closest_hit(scene, origin, direction,
+                    stack_depth: int = STACK_DEPTH,
                     leaf_size: int = 8) -> Hit:
     """Closest hit of each ray against the scene BVH.
 
@@ -148,26 +150,34 @@ def bvh_closest_hit(scene, origin, direction, stack_depth: int = 64,
     return best
 
 
-def _cast(scene, origin, direction, config, mask=None, any_hit=None) -> Hit:
-    if not config.use_bvh or config.tracer == "whileloop":
-        if not config.use_bvh:
-            from .intersect import closest_hit_brute
-            hit = closest_hit_brute(origin, direction,
-                                    scene.p1, scene.p2, scene.p3)
-        else:
-            hit = bvh_closest_hit(scene, origin, direction,
-                                  stack_depth=config.traversal_stack_depth,
-                                  leaf_size=config.bvh_leaf_size)
+def _tracer(config):
+    """Resolve config to (cast, merges): cast(scene, origin, direction,
+    mask, any_hit) -> Hit, and whether it takes per-ray any-hit flags, so
+    that one launch can carry a shadow batch and a bounce batch."""
+    if not config.use_bvh:
+        from .intersect import closest_hit_brute
+        return _masked(lambda scene, o, d: closest_hit_brute(
+            o, d, scene.p1, scene.p2, scene.p3)), False
+    if config.tracer == "whileloop":
+        return _masked(lambda scene, o, d: bvh_closest_hit(
+            scene, o, d, leaf_size=config.bvh_leaf_size)), False
+    from . import bvh_kernel
+    return (lambda scene, o, d, mask, any_hit: bvh_kernel.closest_hit_kernel(
+        scene, o, d, mask, any_hit, leaf_size=config.bvh_leaf_size)), True
+
+
+def _masked(cast):
+    """Give a cast(scene, origin, direction) the tracer signature: masked
+    lanes return a miss; any_hit is ignored (a closest hit answers an
+    occlusion query too)."""
+    def masked(scene, origin, direction, mask, any_hit):
+        hit = cast(scene, origin, direction)
         if mask is None:
             return hit
         return Hit(t=jnp.where(mask, hit.t, INF),
                    tri=jnp.where(mask, hit.tri, -1),
                    inside=mask & hit.inside)
-    from . import bvh_kernel
-    return bvh_kernel.closest_hit_kernel(
-        scene, origin, direction, mask, any_hit,
-        stack_depth=config.traversal_stack_depth,
-        leaf_size=config.bvh_leaf_size)
+    return masked
 
 
 def _detached(hit: Hit) -> Hit:
@@ -194,11 +204,9 @@ def closest_hit(scene, origin, direction, config, mask=None,
     (detached sampling; discontinuity gradients at silhouettes are the
     documented bias, SURVEY.md §7)."""
     sg = jax.lax.stop_gradient
-    flag = None
-    if any_hit:
-        flag = jnp.ones(origin.shape[:1], bool)
-    return _detached(_cast(scene, sg(origin), sg(direction), config,
-                           mask=mask, any_hit=flag))
+    cast, _ = _tracer(config)
+    flag = jnp.ones(origin.shape[:1], bool) if any_hit else None
+    return _detached(cast(scene, sg(origin), sg(direction), mask, flag))
 
 
 def closest_hit_pair(scene, o_any, d_any, m_any, o_cls, d_cls, m_cls,
@@ -208,7 +216,8 @@ def closest_hit_pair(scene, o_any, d_any, m_any, o_cls, d_cls, m_cls,
     a per-ray any-hit flag on the shadow half; the reference tracers run
     two casts. Results are identical either way (exact per-ray
     semantics); detached like closest_hit."""
-    if not config.use_bvh or config.tracer == "whileloop":
+    cast, merges = _tracer(config)
+    if not merges:
         return (closest_hit(scene, o_any, d_any, config, mask=m_any,
                             any_hit=True),
                 closest_hit(scene, o_cls, d_cls, config, mask=m_cls))
@@ -216,7 +225,7 @@ def closest_hit_pair(scene, o_any, d_any, m_any, o_cls, d_cls, m_cls,
     r = o_any.shape[0]
     cat = lambda a, b: jnp.concatenate([a, b])
     flag = cat(jnp.ones_like(m_any), jnp.zeros_like(m_cls))
-    hit = _cast(scene, sg(cat(o_any, o_cls)), sg(cat(d_any, d_cls)), config,
-                mask=cat(m_any, m_cls), any_hit=flag)
+    hit = cast(scene, sg(cat(o_any, o_cls)), sg(cat(d_any, d_cls)),
+               cat(m_any, m_cls), flag)
     return (_detached(Hit(*(x[:r] for x in hit))),
             _detached(Hit(*(x[r:] for x in hit))))

@@ -10,14 +10,13 @@ replicated, so the reduction is the only collective).
 
 from __future__ import annotations
 
-import functools
 
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..models.camera import Camera
-from ..utils.config import RenderConfig, XLA_OPTIONS
+from ..utils.config import RenderConfig, jit
 from .sharding import _trace_rows
 
 
@@ -145,7 +144,7 @@ def param_grad_sharded(scene, camera: Camera, target, config: RenderConfig,
         out_specs=P("tiles"),
         check_vma=False,   # Pallas kernel bodies carry no vma types
     )
-    stacked = jax.jit(fn, compiler_options=XLA_OPTIONS)(
+    stacked = jit(fn)(
         scene, camera, target, dev_ids, params_stack)
     total = jnp.sum(stacked, axis=0)     # ONE cross-device reduction
     loss = total[-1]
@@ -172,8 +171,7 @@ def material_grad_sharded(scene, camera: Camera, target, config: RenderConfig,
                               rays_per_tile=rays_per_tile)
 
 
-@functools.partial(jax.jit, static_argnames=("config", "spp", "rays_per_tile"),
-                   compiler_options=XLA_OPTIONS)
+@jit(static_argnames=("config", "spp", "rays_per_tile"))
 def material_grad(scene, camera: Camera, target, config: RenderConfig,
                   spp: int = 1, rays_per_tile: int = 65536):
     """Single-device (loss, grads) w.r.t. the material table."""
@@ -184,8 +182,7 @@ def material_grad(scene, camera: Camera, target, config: RenderConfig,
     return loss, grads
 
 
-@functools.partial(jax.jit, static_argnames=("config", "spp", "rays_per_tile"),
-                   compiler_options=XLA_OPTIONS)
+@jit(static_argnames=("config", "spp", "rays_per_tile"))
 def camera_grad(scene, camera: Camera, target, config: RenderConfig,
                 spp: int = 1, rays_per_tile: int = 65536):
     """Single-device (loss, grads) w.r.t. the camera pose pytree."""
@@ -200,8 +197,7 @@ def camera_grad(scene, camera: Camera, target, config: RenderConfig,
     return jax.value_and_grad(loss_fn)(camera)
 
 
-@functools.partial(jax.jit, static_argnames=("config", "spp", "rays_per_tile"),
-                   compiler_options=XLA_OPTIONS)
+@jit(static_argnames=("config", "spp", "rays_per_tile"))
 def geometry_grad(scene, camera: Camera, target, config: RenderConfig,
                   spp: int = 1, rays_per_tile: int = 65536):
     """Single-device (loss, vertex_grads) w.r.t. the triangle vertices.

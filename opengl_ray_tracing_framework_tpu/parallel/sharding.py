@@ -19,7 +19,6 @@ used by tests.
 
 from __future__ import annotations
 
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -29,7 +28,7 @@ from ..models.camera import Camera, pixel_uv
 from ..ops.integrator import trace_radiance
 from ..ops.sampling import rand01
 from ..render import RenderState
-from ..utils.config import RenderConfig, XLA_OPTIONS
+from ..utils.config import RenderConfig, jit
 
 
 def make_mesh(devices=None, axis_name: str = "tiles") -> Mesh:
@@ -102,13 +101,10 @@ def render_pass_sharded(scene, camera: Camera, state: RenderState,
     impl = _sharded_pass_impl_2d if "spp" in mesh.axis_names \
         else _sharded_pass_impl
 
-    @functools.partial(
-        jax.jit,
-        static_argnames=("config", "rays_per_tile"),
-        in_shardings=(rep, rep, RenderState(accum=row_sharding, n_samples=rep)),
-        out_shardings=RenderState(accum=row_sharding, n_samples=rep),
-        compiler_options=XLA_OPTIONS,
-    )
+    @jit(static_argnames=("config", "rays_per_tile"),
+         in_shardings=(rep, rep,
+                       RenderState(accum=row_sharding, n_samples=rep)),
+         out_shardings=RenderState(accum=row_sharding, n_samples=rep))
     def step(scene, camera, state, config=config,
              rays_per_tile=rays_per_tile):
         return impl(scene, camera, state, config, mesh, rays_per_tile)

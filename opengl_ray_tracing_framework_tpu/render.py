@@ -24,7 +24,6 @@ perturbation).
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import jax
@@ -35,7 +34,7 @@ from .models.scene import SceneData
 from .ops.integrator import trace_radiance
 from .ops import tonemap
 from .ops.sampling import rand01
-from .utils.config import RenderConfig, XLA_OPTIONS
+from .utils.config import RenderConfig, jit
 
 
 class RenderState(NamedTuple):
@@ -139,8 +138,7 @@ def _one_pass(scene: SceneData, camera: Camera, state: RenderState,
                        n_samples=n + config.spp_per_pass)
 
 
-@functools.partial(jax.jit, static_argnames=("config", "rays_per_tile"),
-                   compiler_options=XLA_OPTIONS)
+@jit(static_argnames=("config", "rays_per_tile"))
 def render_pass(scene: SceneData, camera: Camera, state: RenderState,
                 config: RenderConfig, rays_per_tile: int = 65536
                 ) -> RenderState:
@@ -148,9 +146,8 @@ def render_pass(scene: SceneData, camera: Camera, state: RenderState,
     return _one_pass(scene, camera, state, config, rays_per_tile)
 
 
-@functools.partial(
-    jax.jit, static_argnames=("config", "n_passes", "rays_per_tile"),
-    donate_argnames=("state",), compiler_options=XLA_OPTIONS)
+@jit(static_argnames=("config", "n_passes", "rays_per_tile"),
+     donate_argnames=("state",))
 def render_passes(scene: SceneData, camera: Camera, state: RenderState,
                   config: RenderConfig, n_passes: int,
                   rays_per_tile: int = 65536) -> RenderState:

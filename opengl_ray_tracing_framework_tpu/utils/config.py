@@ -12,18 +12,48 @@ instead — see models.camera.Camera and models.material.MaterialTable.
 from __future__ import annotations
 
 import dataclasses
+import functools
+
+import jax
 
 TRACERS = ("kernel", "whileloop")
 
-# Compile options of the package's jitted entry points (render_pass,
-# render_passes, the gradient and sharded steps). XLA's GPU priority
-# fusion can form multi-output Triton fusions that make its fusion graph
-# cyclic on the integrator's compaction branches; the compiler then aborts
-# the process ("A cycle is detected while visiting instruction", seen on
-# an H100 compiling render_pass at 1024x512x8 with either tracer). Turning
-# that fusion kind off avoids it. Other backends ignore GPU options. A
-# caller that wraps an entry point in its own jit must pass these too.
+# Compile options of every program that renders. XLA's GPU priority fusion
+# can form multi-output Triton fusions that make its fusion graph cyclic on
+# the integrator's compaction branches; the compiler then aborts the
+# process ("A cycle is detected while visiting instruction", seen on an
+# H100 compiling render_pass at 1024x512x8 with either tracer). Turning
+# that fusion kind off avoids it. Other backends ignore GPU options.
 XLA_OPTIONS = {"xla_gpu_unsupported_enable_triton_multi_output_fusion": False}
+
+
+def jit(fun=None, **kwargs):
+    """jax.jit with XLA_OPTIONS among its compiler options.
+
+    Every jitted entry point of the package is made with it, and so must be
+    any program of a caller's that calls one (an optimizer step around
+    material_grad, say). JAX takes compiler options only from the
+    outermost program and refuses them on a jit traced inside another, so
+    there the function runs as a plain jit (traced once more) and the
+    outer program's options apply. Usable as `jit(f, ...)`, `@jit` or
+    `@jit(static_argnames=...)`."""
+    if fun is None:
+        return lambda f: jit(f, **kwargs)
+    options = {**XLA_OPTIONS, **kwargs.pop("compiler_options", {})}
+    outer = jax.jit(fun, compiler_options=options, **kwargs)
+    inner = jax.jit(fun, **kwargs)
+
+    @functools.wraps(fun)
+    def call(*args, **kw):
+        try:
+            return outer(*args, **kw)
+        except ValueError as e:
+            if "compiler_options" not in str(e):
+                raise
+            return inner(*args, **kw)
+
+    call.clear_cache = lambda: (outer.clear_cache(), inner.clear_cache())
+    return call
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,9 +96,6 @@ class RenderConfig:
     # Sampling.
     spp_per_pass: int = 1             # reference renders 1 spp/frame (glsl:1552)
     pixel_jitter: bool = False        # reference always shoots pixel centers
-    # Traversal stack depth for the vectorized BVH walk. The reference uses a
-    # 256-deep stack (glsl:344); SAH trees over <=1M tris stay far below 64.
-    traversal_stack_depth: int = 64
     # BVH leaf size used at build time (Scene.h:197 uses 8).
     bvh_leaf_size: int = 8
 

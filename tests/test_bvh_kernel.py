@@ -13,6 +13,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
+from opengl_ray_tracing_framework_tpu.models.bvh import STACK_DEPTH
 from opengl_ray_tracing_framework_tpu.models.camera import Camera
 from opengl_ray_tracing_framework_tpu.models.scene import build_test_scene
 from opengl_ray_tracing_framework_tpu.ops import bvh_kernel, traverse
@@ -97,6 +98,68 @@ def test_tracer_matches_oracle(scene, many_leaf_scene, case, tracer,
         assert (np.asarray(hit.tri)[~m] == -1).all()
         assert (np.asarray(hit.t)[~m] == INF).all()
         assert (np.asarray(hit.tri)[m] == np.asarray(full.tri)[m]).all()
+
+
+def _chain_scene(scene, depth):
+    """`scene` with its BVH replaced by a chain: spine node i holds leaf i
+    on its left and spine node i + 1 on its right, over triangles sorted
+    along x, so the deepest leaf lies `depth` levels down and a ray coming
+    from +x pushes a leaf at every level."""
+    p = [np.asarray(x) for x in (scene.p1, scene.p2, scene.p3)]
+    order = np.argsort((p[0] + p[1] + p[2])[:, 0], kind="stable")
+    p = [x[order] for x in p]
+    lo_tri = np.minimum(np.minimum(p[0], p[1]), p[2])
+    hi_tri = np.maximum(np.maximum(p[0], p[1]), p[2])
+    bounds = np.linspace(0, len(order), depth + 2).astype(int)
+    assert (np.diff(bounds) >= 1).all() and (np.diff(bounds) <= 8).all()
+    n_nodes = 1 + depth + depth + 1           # sentinel, spine, leaves
+    left, right, count, first = (np.zeros(n_nodes, np.int32)
+                                 for _ in range(4))
+    lo = np.zeros((n_nodes, 3), np.float32)
+    hi = np.zeros((n_nodes, 3), np.float32)
+    for j in range(depth + 1):
+        leaf, (a, b) = 1 + depth + j, bounds[j:j + 2]
+        count[leaf], first[leaf] = b - a, a
+        lo[leaf], hi[leaf] = lo_tri[a:b].min(0), hi_tri[a:b].max(0)
+    for node in range(depth, 0, -1):
+        left[node] = depth + node
+        right[node] = node + 1 if node < depth else 2 * depth + 1
+        lo[node] = np.minimum(lo[left[node]], lo[right[node]])
+        hi[node] = np.maximum(hi[left[node]], hi[right[node]])
+    dev = jnp.asarray
+    return scene._replace(
+        p1=dev(p[0]), p2=dev(p[1]), p3=dev(p[2]), bvh_left=dev(left),
+        bvh_right=dev(right), bvh_count=dev(count), bvh_first=dev(first),
+        bvh_min=dev(lo), bvh_max=dev(hi))
+
+
+@pytest.mark.parametrize("tracer", TRACERS)
+def test_tracer_on_deepest_tree(scene, tracer, request):
+    """A chain as deep as build_bvh allows (STACK_DEPTH - 1 levels): the
+    tracers' full stacks hold every pending node."""
+    if tracer == "kernel":
+        request.getfixturevalue("interpret_kernel")
+    chain = _chain_scene(scene, STACK_DEPTH - 1)
+    o, d = random_rays(np.random.default_rng(5), 1024)
+    hit = closest_hit(chain, o, d, RenderConfig(tracer=tracer))
+    assert_matches_oracle(chain, hit, o, d)
+
+
+def test_kernel_short_stack_drops_pushes(scene):
+    """With a stack shorter than the tree the kernel drops the pushes that
+    do not fit: it loses some hits (so the chain's rays do need a deep
+    stack) and never reports a hit closer than the true closest one. That
+    a dropped push writes nothing outside its block's slots shows only on
+    a GPU: the interpreter drops out-of-range stores itself."""
+    chain = _chain_scene(scene, STACK_DEPTH - 1)
+    o, d = random_rays(np.random.default_rng(5), 1024)
+    short = closest_hit_kernel(chain, o, d, stack_depth=8, interpret=True)
+    oracle = closest_hit_brute(o, d, chain.p1, chain.p2, chain.p3)
+    hit, ref = np.asarray(short.tri) >= 0, np.asarray(oracle.tri) >= 0
+    assert (hit & ~ref).sum() == 0
+    assert (ref & ~hit).sum() > 0, "the rays never needed a deep stack"
+    t, t_ref = np.asarray(short.t)[hit], np.asarray(oracle.t)[hit]
+    assert (t >= t_ref - 1e-4 * (1 + np.abs(t_ref))).all()
 
 
 def test_pair_cast_equals_two_casts(scene, interpret_kernel):

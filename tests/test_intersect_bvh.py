@@ -7,6 +7,7 @@ against hitArray (glsl:320-392)."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from opengl_ray_tracing_framework_tpu.models.bvh import build_bvh, validate_bvh
 from opengl_ray_tracing_framework_tpu.models.scene import build_test_scene
@@ -80,6 +81,14 @@ def test_bvh_invariants(rng):
         counts = bvh.count[leaf][np.argsort(bvh.first[leaf])]
         assert firsts[0] == 0
         assert (firsts[1:] == (firsts + counts)[:-1]).all()
+
+
+def test_bvh_depth_is_bounded(rng):
+    """build_bvh refuses a tree deeper than the traversal stacks hold."""
+    p1, p2, p3 = _random_soup(rng, 300)
+    build_bvh(p1, p2, p3, leaf_size=1)
+    with pytest.raises(ValueError, match="deeper than 3 levels"):
+        build_bvh(p1, p2, p3, leaf_size=1, max_depth=3)
 
 
 class _MiniScene:

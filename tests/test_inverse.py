@@ -49,7 +49,7 @@ def test_fit_base_color_recovers_target():
     opt = optax.adam(2e-2)
     opt_state = opt.init(params.mat.base_color)
 
-    @jax.jit
+    @ortf.jit
     def step(mats, opt_state):
         loss, grads = jax.value_and_grad(material_loss, allow_int=True)(
             mats, scene, CAM, target, CFG, jnp.int32(0), CFG.height,
@@ -101,3 +101,18 @@ def test_vertex_grad_finite_and_fd():
     # detached traversal: FD sees silhouette motion the AD gradient does
     # not — compare with a generous but meaningful tolerance
     assert abs(fd - ad) < 0.25 * max(abs(fd), abs(ad)), (fd, ad)
+
+
+def test_package_jit_nests_in_a_callers_program():
+    """JAX refuses compiler options on a jit traced inside another
+    program: a package entry point called there runs as a plain jit, and
+    the caller's program, made with ortf.jit, carries the options."""
+    entry = ortf.jit(lambda x, n: x * n, static_argnames="n")
+    x = jnp.arange(3.0)
+    np.testing.assert_array_equal(entry(x, n=2), x * 2)
+    step = ortf.jit(lambda x: entry(x, n=2) + 1.0)
+    np.testing.assert_array_equal(step(x), x * 2 + 1)
+    np.testing.assert_array_equal(jax.jit(lambda x: entry(x, n=3))(x), x * 3)
+    # arrays a caller's program closes over reach the entry point as
+    # constants, not tracers
+    np.testing.assert_array_equal(jax.jit(lambda: entry(x, n=4))(), x * 4)
